@@ -1,0 +1,176 @@
+"""The decode loop: sample code_0 -> code predictor (groups 1..15) ->
+feedback embedding -> talker decode step. Twin of
+qwen3_tts_tpu/engine/generate.py.
+
+Feedback: codec_embedding[code_0] + sum_g cp codec_embs[g-1][code_g]
++ tts_pad_embed. Rows decode in lockstep; a finished row freezes. All
+shapes are fixed, so a step enqueues its work without a host round trip:
+the loop reads ``done`` back only every ``DONE_CHECK_STRIDE`` steps.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from qwen3_tts_tpu_torch.config import (
+    CODEC_EOS_ID,
+    NUM_AUDIO_CODES,
+    TTS_PAD_TOKEN_ID,
+    TTSConfig,
+)
+from qwen3_tts_tpu_torch.models import code_predictor as cp
+from qwen3_tts_tpu_torch.models import talker as tk
+from qwen3_tts_tpu_torch.models import transformer as tfm
+from qwen3_tts_tpu_torch.ops import sampling as smp
+
+# steps between host reads of ``done`` (each read waits for the device)
+DONE_CHECK_STRIDE = 8
+
+
+@dataclasses.dataclass
+class GenState:
+    """State of the decode loop; every field a fixed-shape tensor."""
+
+    kv: torch.Tensor        # talker KV cache (L, 2, B, S, Hkv, Dh)
+    pos: torch.Tensor       # (B,) next talker write position
+    hidden: torch.Tensor    # (B, H) last talker hidden (post final norm)
+    ring: torch.Tensor      # (B, W) last code_0 window (-1 empty)
+    n_codes: torch.Tensor   # (B,) codes generated per row
+    done: torch.Tensor      # (B,) bool
+    codes: torch.Tensor     # (B, T_max, 16) int32 output buffer
+    n_text: torch.Tensor    # (B,) text-token counts (EOS pacing)
+    budget: torch.Tensor    # (B,) per-row token budget (<= cfg.max_tokens)
+
+
+def prefill_state(talker_params: dict, prefix: torch.Tensor,
+                  prefix_len: torch.Tensor, cfg: TTSConfig,
+                  kv_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Talker prefill over a (B, P_pad, H) prefix: (hidden, kv)."""
+    tcfg = cfg.talker
+    kv = tfm.init_kv_cache(tfm.geometry_of(tcfg), prefix.shape[0],
+                           tcfg.max_seq_len, dtype=kv_dtype or prefix.dtype,
+                           device=prefix.device)
+    return tk.prefill(talker_params, prefix, prefix_len, kv, tcfg)
+
+
+def assemble_state(hidden: torch.Tensor, kv: torch.Tensor,
+                   prefix_len: torch.Tensor, n_text: torch.Tensor,
+                   cfg: TTSConfig, budget=None) -> GenState:
+    """The per-request loop state around a prefill result."""
+    B, dev = hidden.shape[0], hidden.device
+    i32 = dict(dtype=torch.int32, device=dev)
+    cap = torch.full((B,), cfg.max_tokens, **i32)
+    return GenState(
+        kv=kv,
+        pos=prefix_len.to(torch.int32).reshape(B),
+        hidden=hidden,
+        ring=torch.full((B, cfg.sampling.repetition_window), -1, **i32),
+        n_codes=torch.zeros((B,), **i32),
+        done=torch.zeros((B,), dtype=torch.bool, device=dev),
+        codes=torch.zeros((B, cfg.max_tokens, 16), **i32),
+        n_text=torch.as_tensor(n_text, **i32).reshape(B),
+        budget=cap if budget is None else torch.minimum(
+            torch.as_tensor(budget, **i32).expand(B), cap),
+    )
+
+
+def init_state(talker_params: dict, prefix: torch.Tensor,
+               prefix_len: torch.Tensor, n_text: torch.Tensor,
+               cfg: TTSConfig, kv_dtype=None, budget=None) -> GenState:
+    """Prefill the talker and build the initial loop state."""
+    hidden, kv = prefill_state(talker_params, prefix, prefix_len, cfg,
+                               kv_dtype)
+    return assemble_state(hidden, kv, prefix_len, n_text, cfg, budget)
+
+
+def _loop_body(state: GenState, talker_params: dict, cp_params: dict,
+               tts_pad_embed: torch.Tensor, cfg: TTSConfig,
+               gen: torch.Generator,
+               rope_table: Optional[tuple] = None) -> GenState:
+    """One token for every row. The KV cache and the codes buffer are
+    updated in place; a frozen row rewrites its own slot harmlessly."""
+    B = state.hidden.shape[0]
+    scfg = cfg.sampling
+    b_idx = torch.arange(B, device=state.hidden.device)
+
+    # 1. code_0 from the current hidden
+    logits = tk.codec_logits(talker_params, state.hidden)
+    code0 = smp.sample_code0(logits, state.ring, state.n_codes,
+                             state.n_text, gen, scfg)
+    is_eos = (code0 == CODEC_EOS_ID) | (code0 >= NUM_AUDIO_CODES)
+    S = state.kv.shape[3]
+    has_room = (state.n_codes < state.budget) & (state.pos < S - 1)
+    active = ~state.done & ~is_eos & has_room
+    act_i = active.to(torch.int32)
+    new_n_codes = state.n_codes + act_i
+    new_done = (state.done | is_eos | (new_n_codes >= state.budget)
+                | (state.pos + act_i >= S - 1))
+
+    # 2. code predictor: groups 1..15 (always computed; masked commit)
+    code0_safe = torch.where(active, code0, torch.zeros_like(code0))
+    c0_embed = talker_params["codec_embedding"][code0_safe.long()]
+    groups = cp.predict_codes(cp_params, state.hidden, c0_embed, gen,
+                              cfg.code_predictor, scfg)           # (B, 15)
+
+    # 3. feedback embedding
+    embs = cp_params["codec_embs"]
+    g_idx = torch.arange(embs.shape[0], device=embs.device)[None, :]
+    fb = (c0_embed + embs[g_idx, groups.long()].sum(dim=1)
+          + tts_pad_embed[None, :]).to(state.hidden.dtype)
+
+    # 4. talker decode step
+    new_hidden, kv = tk.decode_step(talker_params, fb, state.pos, state.kv,
+                                    cfg.talker, rope_table=rope_table)
+
+    # 5. commit for active rows only
+    row = torch.cat([code0_safe[:, None], groups], dim=1)        # (B, 16)
+    write_idx = torch.where(active, state.n_codes.long(),
+                            torch.full_like(b_idx, cfg.max_tokens - 1))
+    state.codes[b_idx, write_idx] = torch.where(
+        active[:, None], row, state.codes[b_idx, write_idx])
+    return GenState(
+        kv=kv,
+        pos=torch.where(active, state.pos + 1, state.pos),
+        hidden=torch.where(active[:, None], new_hidden, state.hidden),
+        ring=torch.where(active[:, None],
+                         smp.ring_push(state.ring, code0_safe), state.ring),
+        n_codes=new_n_codes,
+        done=new_done,
+        codes=state.codes,
+        n_text=state.n_text,
+        budget=state.budget,
+    )
+
+
+def run_steps(talker_params: dict, cp_params: dict, state: GenState,
+              cfg: TTSConfig, max_steps: int,
+              gen: torch.Generator) -> GenState:
+    """Advance the loop by up to ``max_steps`` tokens; stops once every row
+    is done. ``done`` is read back only every DONE_CHECK_STRIDE steps, so
+    up to that many steps past the end may run: they change nothing,
+    because every row is frozen."""
+    dev = state.hidden.device
+    tts_pad_embed = tk.embed_text(
+        talker_params, torch.tensor([TTS_PAD_TOKEN_ID], device=dev))[0]
+    tcfg = cfg.talker
+    rope_table = tfm.rope_cos_sin(torch.arange(state.kv.shape[3], device=dev),
+                                  tcfg.head_dim, tcfg.rope_theta)
+    for i in range(int(max_steps)):
+        if i % DONE_CHECK_STRIDE == 0 and bool(state.done.all()):
+            break
+        state = _loop_body(state, talker_params, cp_params, tts_pad_embed,
+                           cfg, gen, rope_table)
+    return state
+
+
+def generate(talker_params: dict, cp_params: dict, prefix: torch.Tensor,
+             prefix_len: torch.Tensor, n_text: torch.Tensor,
+             gen: torch.Generator, cfg: TTSConfig):
+    """Full decode: returns (codes (B, T_max, 16), n_codes (B,))."""
+    state = init_state(talker_params, prefix, prefix_len, n_text, cfg)
+    state = run_steps(talker_params, cp_params, state, cfg, cfg.max_tokens,
+                      gen)
+    return state.codes, state.n_codes

@@ -1,0 +1,148 @@
+"""Talker LLM: the 28-layer Qwen3 transformer run on embeddings, plus its
+TTS embedding surface (text embedding + projection MLP, codec embedding,
+codec head). Twin of qwen3_tts_tpu/models/talker.py."""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from qwen3_tts_tpu_torch.config import (
+    ASSISTANT_TOKEN_ID,
+    CODEC_BOS_ID,
+    CODEC_NOTHINK_ID,
+    CODEC_PAD_ID,
+    CODEC_THINK_BOS_ID,
+    CODEC_THINK_EOS_ID,
+    IM_START_TOKEN_ID,
+    NEWLINE_TOKEN_ID,
+    TTS_BOS_TOKEN_ID,
+    TTS_EOS_TOKEN_ID,
+    TTS_PAD_TOKEN_ID,
+    TalkerConfig,
+)
+from qwen3_tts_tpu_torch.models import transformer as tfm
+from qwen3_tts_tpu_torch.models.module import WeightTree
+from qwen3_tts_tpu_torch.ops import quant
+from qwen3_tts_tpu_torch.ops.kernels.talker_step import (
+    talker_decode_step_fused)
+
+# prefix positions besides the N text tokens:
+# 3 role + 3 think + 1 transition + 1 tts_eos + 1 final codec_bos
+PREFIX_EXTRA = 9
+
+
+class Talker(WeightTree):
+    """The talker's weights (JAX names and layouts)."""
+
+    def __init__(self, cfg: TalkerConfig, params: dict):
+        super().__init__(params)
+        self.cfg = cfg
+
+
+def embed_text(params: dict, token_ids: torch.Tensor) -> torch.Tensor:
+    """text_embedding lookup + Linear -> SiLU -> Linear projection;
+    (...,) ids -> (..., hidden) in the embedding's dtype."""
+    e = params["text_embedding"][token_ids]
+    h = e.float() @ params["proj_fc1_w"].float() + params["proj_fc1_b"].float()
+    h = tfm.silu(h)
+    out = (h.to(e.dtype).float() @ params["proj_fc2_w"].float()
+           + params["proj_fc2_b"].float())
+    return out.to(e.dtype)
+
+
+def codec_logits(params: dict, hidden: torch.Tensor) -> torch.Tensor:
+    """hidden (..., H) -> (..., codec_vocab) f32; codec_head may be int8."""
+    return quant.matmul(hidden, params["codec_head"])
+
+
+def build_prefix(params: dict, text_token_ids: torch.Tensor,
+                 n_text) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Dual-stream prefix of fixed shape (N_pad + PREFIX_EXTRA, H):
+
+      [0:3]   role: proj(text_emb([im_start, assistant, newline]))
+      [3:6]   tts_pad + codec_emb([nothink, think_bos, think_eos])
+      [6]     tts_bos + codec_emb[pad]
+      [7:7+N] proj(text_token_i) + codec_emb[pad]
+      [7+N]   tts_eos + codec_emb[pad]
+      [8+N]   tts_pad + codec_emb[bos]
+
+    Rows past 8+N are zero. ``n_text`` is clamped to N_pad, so an
+    oversized count cannot push the tail rows out of the prefix.
+    Returns (prefix, prefix_len = n_text + PREFIX_EXTRA as int32)."""
+    dev = text_token_ids.device
+    n_pad = text_token_ids.shape[0]
+    n_text = torch.clamp(torch.as_tensor(n_text, dtype=torch.int32,
+                                         device=dev), max=n_pad)
+    ce = params["codec_embedding"]
+
+    def ids(*xs):
+        return torch.tensor(xs, dtype=torch.long, device=dev)
+
+    tts_pad_e, tts_bos_e, tts_eos_e = embed_text(
+        params, ids(TTS_PAD_TOKEN_ID, TTS_BOS_TOKEN_ID, TTS_EOS_TOKEN_ID))
+    role = embed_text(params, ids(IM_START_TOKEN_ID, ASSISTANT_TOKEN_ID,
+                                  NEWLINE_TOKEN_ID))
+    think = tts_pad_e[None, :] + ce[ids(CODEC_NOTHINK_ID, CODEC_THINK_BOS_ID,
+                                        CODEC_THINK_EOS_ID)]
+    transition = (tts_bos_e + ce[CODEC_PAD_ID])[None, :]
+    text_e = embed_text(params, text_token_ids.long()) + ce[CODEC_PAD_ID][None]
+
+    eos_row = tts_eos_e + ce[CODEC_PAD_ID]
+    final_row = tts_pad_e + ce[CODEC_BOS_ID]
+    ridx = torch.arange(n_pad + 2, device=dev)[:, None]
+    text_pad2 = torch.cat([text_e, torch.zeros_like(text_e[:2])], dim=0)
+    zeros = torch.zeros_like(text_pad2)
+    tail = torch.where(ridx < n_text, text_pad2,
+                       torch.where(ridx == n_text, eos_row[None],
+                                   torch.where(ridx == n_text + 1,
+                                               final_row[None], zeros)))
+    prefix = torch.cat([role, think, transition, tail], dim=0)
+    return prefix.to(text_e.dtype), n_text + PREFIX_EXTRA
+
+
+def prefill(params: dict, prefix: torch.Tensor, prefix_len: torch.Tensor,
+            kv_cache: torch.Tensor, cfg: TalkerConfig):
+    """Prefill a (B, P_pad, H) prefix. Returns (hidden at the last real
+    position after the final norm (B, H), kv_cache filled in place)."""
+    geo = tfm.geometry_of(cfg)
+    B, P, _ = prefix.shape
+    positions = torch.arange(P, device=prefix.device).expand(B, P)
+    mask = tfm.causal_mask(B, P, prefix_len)
+    h, kv = tfm.forward_prefill(params["layers"], prefix, positions, mask,
+                                geo, kv_cache)
+    h = tfm.rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+    last = h[torch.arange(B, device=h.device), prefix_len.long() - 1]
+    return last, kv
+
+
+def _fused_step_ok(params: dict) -> bool:
+    """The fused decode step (K3) applies to the fused-int8 layer layout
+    of ops/quant.quantize_talker. It is taken whenever that layout is
+    present: on the card the kernel runs (and raises for what it cannot
+    take, such as B > 8), on the CPU its plain version."""
+    layers = params.get("layers", {})
+    return (isinstance(layers.get("qkv_proj"), quant.QTensor)
+            and isinstance(layers.get("gateup_proj"), quant.QTensor))
+
+
+def decode_step(params: dict, feedback: torch.Tensor, pos: torch.Tensor,
+                kv_cache: torch.Tensor, cfg: TalkerConfig,
+                rope_table: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
+    """One talker decode step on a feedback embedding (B, H). Returns the
+    final-norm hidden (B, H) and the cache (updated in place).
+    ``rope_table``: precomputed (S, Dh) cos/sin tables for K3, which loop
+    callers pass so they are not rebuilt every step."""
+    if _fused_step_ok(params):
+        if rope_table is None:
+            rope_table = tfm.rope_cos_sin(
+                torch.arange(kv_cache.shape[3], device=kv_cache.device),
+                cfg.head_dim, cfg.rope_theta)
+        h, kv = talker_decode_step_fused(
+            params["layers"], feedback, pos, kv_cache, rope_table[0],
+            rope_table[1], eps=cfg.rms_norm_eps)
+    else:
+        h, kv = tfm.decode_step(params["layers"], feedback, pos, kv_cache,
+                                tfm.geometry_of(cfg))
+    return tfm.rms_norm(h, params["final_norm"], cfg.rms_norm_eps), kv

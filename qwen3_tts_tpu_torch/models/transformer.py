@@ -1,0 +1,235 @@
+"""Qwen3 transformer blocks shared by the talker and the code predictor,
+dense KV path. Twin of qwen3_tts_tpu/models/transformer.py.
+
+Weights are stacked along a leading layer axis and stored (in, out), so
+the hot path is ``x @ W``; int8 weights are ops/quant.QTensor and their
+products go to K1. The KV cache is dense, (L, 2, B, S, Hkv, Dh), the JAX
+layout. Unlike JAX, the prefill and decode functions write the new K/V
+rows into the cache they are given IN PLACE (and return it), which saves
+a copy of the cache per step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional, Tuple
+
+import torch
+
+from qwen3_tts_tpu_torch.ops import quant
+
+NEG_MASK = -1e30
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor,
+             eps: float) -> torch.Tensor:
+    """HF Qwen3RMSNorm order: normalise in f32, cast back to the input
+    dtype, then multiply by the weight in that dtype."""
+    dtype = x.dtype
+    xf = x.float()
+    var = (xf * xf).mean(-1, keepdim=True)
+    x_hat = (xf * torch.rsqrt(var + eps)).to(dtype)
+    return x_hat * weight.to(dtype)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(x)
+
+
+def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float,
+                 dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin of shape positions.shape + (head_dim,), HF rotate_half
+    convention (the two halves repeat the same frequencies)."""
+    half = head_dim // 2
+    freq_idx = torch.arange(half, dtype=torch.float32,
+                            device=positions.device)
+    inv_freq = 1.0 / (theta ** (freq_idx / half))
+    angles = positions.float()[..., None] * inv_freq
+    cos = torch.cat([torch.cos(angles)] * 2, dim=-1).to(dtype)
+    sin = torch.cat([torch.sin(angles)] * 2, dim=-1).to(dtype)
+    return cos, sin
+
+
+def rotate_half(x: torch.Tensor) -> torch.Tensor:
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor,
+               sin: torch.Tensor) -> torch.Tensor:
+    """x: (..., heads, head_dim); cos/sin broadcastable to it."""
+    xf = x.float()
+    return (xf * cos + rotate_half(xf) * sin).to(x.dtype)
+
+
+def swiglu_mlp(x: torch.Tensor, gate_w, up_w, down_w,
+               gateup_w=None) -> torch.Tensor:
+    """down(silu(x @ gate) * (x @ up)); a fused gate|up weight runs as
+    one product."""
+    if gateup_w is not None:
+        gu = quant.matmul(x, gateup_w)
+        inter = gu.shape[-1] // 2
+        g, u = gu[..., :inter], gu[..., inter:]
+    else:
+        g = quant.matmul(x, gate_w)
+        u = quant.matmul(x, up_w)
+    h = (silu(g) * u).to(x.dtype)
+    return quant.matmul(h, down_w).to(x.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerGeometry:
+    num_layers: int
+    hidden_size: int
+    intermediate_size: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: int
+    rms_norm_eps: float
+    rope_theta: float
+
+    @property
+    def q_groups(self) -> int:
+        return self.num_heads // self.num_kv_heads
+
+
+def geometry_of(cfg) -> TransformerGeometry:
+    """The shared geometry of a TalkerConfig / CodePredictorConfig."""
+    return TransformerGeometry(
+        num_layers=cfg.num_layers, hidden_size=cfg.hidden_size,
+        intermediate_size=cfg.intermediate_size, num_heads=cfg.num_heads,
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+        rms_norm_eps=cfg.rms_norm_eps, rope_theta=cfg.rope_theta)
+
+
+def init_kv_cache(geo: TransformerGeometry, batch: int, max_seq: int,
+                  dtype=torch.float32, device=None) -> torch.Tensor:
+    """Dense KV cache (L, 2, B, S, Hkv, Dh)."""
+    return torch.zeros((geo.num_layers, 2, batch, max_seq,
+                        geo.num_kv_heads, geo.head_dim),
+                       dtype=dtype, device=device)
+
+
+def _qkv(layer: dict, x: torch.Tensor, geo: TransformerGeometry,
+         cos: torch.Tensor, sin: torch.Tensor):
+    """Project, per-head QK-RMSNorm, then RoPE (HF Qwen3Attention order).
+    x: (B, T, H); cos/sin: (B, T, Dh). Returns q (B, T, Hq, Dh), k/v
+    (B, T, Hkv, Dh)."""
+    B, T, _ = x.shape
+    xf = x.reshape(B * T, -1)
+    QD = geo.num_heads * geo.head_dim
+    KVD = geo.num_kv_heads * geo.head_dim
+    if "qkv_proj" in layer:
+        qkv = quant.matmul(xf, layer["qkv_proj"])
+        q, k, v = qkv[:, :QD], qkv[:, QD:QD + KVD], qkv[:, QD + KVD:]
+    else:
+        q = quant.matmul(xf, layer["q_proj"])
+        k = quant.matmul(xf, layer["k_proj"])
+        v = quant.matmul(xf, layer["v_proj"])
+    q = q.to(x.dtype).reshape(B, T, geo.num_heads, geo.head_dim)
+    k = k.to(x.dtype).reshape(B, T, geo.num_kv_heads, geo.head_dim)
+    v = v.to(x.dtype).reshape(B, T, geo.num_kv_heads, geo.head_dim)
+    q = rms_norm(q, layer["q_norm"], geo.rms_norm_eps)
+    k = rms_norm(k, layer["k_norm"], geo.rms_norm_eps)
+    q = apply_rope(q, cos[:, :, None, :], sin[:, :, None, :])
+    k = apply_rope(k, cos[:, :, None, :], sin[:, :, None, :])
+    return q, k, v
+
+
+def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  mask: torch.Tensor, geo: TransformerGeometry):
+    """q (B, Tq, Hq, Dh); k/v (B, Tk, Hkv, Dh); mask (B, Tq, Tk) bool,
+    True = attend. Scores and softmax in f32. Returns (B, Tq, Hq*Dh)."""
+    B, Tq = q.shape[0], q.shape[1]
+    G = geo.q_groups
+    qg = q.reshape(B, Tq, geo.num_kv_heads, G, geo.head_dim)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.float(), k.float())
+    scores = scores / math.sqrt(geo.head_dim)
+    scores = torch.where(mask[:, None, None], scores,
+                         torch.full_like(scores, NEG_MASK))
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs.float(),
+                       v.float()).to(v.dtype)
+    return out.reshape(B, Tq, geo.num_heads * geo.head_dim)
+
+
+def _block(layer: dict, h: torch.Tensor, geo: TransformerGeometry,
+           cos, sin, attend):
+    """One pre-norm transformer layer; ``attend(q, k, v)`` returns the
+    attention output (B, T, Hq*Dh) and stores K/V where it belongs."""
+    hn = rms_norm(h, layer["input_ln"], geo.rms_norm_eps)
+    q, k, v = _qkv(layer, hn, geo, cos, sin)
+    attn = attend(q, k, v)
+    B, T = attn.shape[0], attn.shape[1]
+    attn = quant.matmul(attn.reshape(B * T, -1),
+                        layer["o_proj"]).reshape(B, T, -1).to(h.dtype)
+    h = h + attn
+    hn = rms_norm(h, layer["post_ln"], geo.rms_norm_eps)
+    return h + swiglu_mlp(hn, layer.get("gate_proj"), layer.get("up_proj"),
+                          layer["down_proj"],
+                          gateup_w=layer.get("gateup_proj"))
+
+
+def forward_prefill_unrolled(layers_list, x: torch.Tensor,
+                             positions: torch.Tensor,
+                             attn_mask: torch.Tensor,
+                             geo: TransformerGeometry,
+                             kv_cache: Optional[torch.Tensor] = None):
+    """All layers over a full (padded) sequence x (B, P, H); K/V land in
+    kv_cache[:, :, :, :P] (in place). Returns (hidden before the final
+    norm, kv_cache)."""
+    cos, sin = rope_cos_sin(positions, geo.head_dim, geo.rope_theta)
+    P = x.shape[1]
+    h = x
+    for li, layer in enumerate(layers_list):
+        def attend(q, k, v, li=li):
+            if kv_cache is not None:
+                kv_cache[li, 0, :, :P] = k.to(kv_cache.dtype)
+                kv_cache[li, 1, :, :P] = v.to(kv_cache.dtype)
+            return gqa_attention(q, k, v, attn_mask, geo)
+        h = _block(layer, h, geo, cos, sin, attend)
+    return h, kv_cache
+
+
+def _layers(params: dict):
+    L = params["input_ln"].shape[0]
+    return [{k: v[l] for k, v in params.items()} for l in range(L)]
+
+
+def forward_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor,
+                    attn_mask: torch.Tensor, geo: TransformerGeometry,
+                    kv_cache: Optional[torch.Tensor] = None):
+    """forward_prefill_unrolled over a stacked layer dict."""
+    return forward_prefill_unrolled(_layers(params), x, positions,
+                                    attn_mask, geo, kv_cache)
+
+
+def causal_mask(batch: int, seq_len: int, lengths: torch.Tensor):
+    """(B, P, P) bool: causal AND key position < length."""
+    idx = torch.arange(seq_len, device=lengths.device)
+    causal = idx[None, :] <= idx[:, None]
+    valid = idx[None, :] < lengths[:, None]
+    return causal[None] & valid[:, None, :]
+
+
+def decode_step(params: dict, x: torch.Tensor, pos: torch.Tensor,
+                kv_cache: torch.Tensor, geo: TransformerGeometry):
+    """One token per row over all layers: x (B, H), pos (B,) write
+    positions. The new K/V rows go into kv_cache in place. Returns
+    (hidden (B, H) before the final norm, kv_cache)."""
+    B = x.shape[0]
+    S = kv_cache.shape[3]
+    cos, sin = rope_cos_sin(pos[:, None], geo.head_dim, geo.rope_theta)
+    mask = (torch.arange(S, device=x.device)[None, :]
+            <= pos[:, None])[:, None, :]
+    b_idx = torch.arange(B, device=x.device)
+    h = x[:, None, :]
+    for li, layer in enumerate(_layers(params)):
+        def attend(q, k, v, li=li):
+            kv_cache[li, 0, b_idx, pos] = k[:, 0].to(kv_cache.dtype)
+            kv_cache[li, 1, b_idx, pos] = v[:, 0].to(kv_cache.dtype)
+            return gqa_attention(q, kv_cache[li, 0], kv_cache[li, 1],
+                                 mask, geo)
+        h = _block(layer, h, geo, cos, sin, attend)
+    return h[:, 0], kv_cache

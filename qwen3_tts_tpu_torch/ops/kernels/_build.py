@@ -1,0 +1,113 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Every source under ``qwen3_tts_tpu_torch/csrc/`` is compiled by ``nvcc``
+into ONE shared library with a plain C interface, at first use, into
+``build/qwen3_tts_tpu_torch/`` at the repository root. The file name
+carries a hash of the sources and the flags, so an edited source builds
+anew. The library is loaded with ``ctypes``: every entry point takes
+pointers (``c_void_p``) and ints (``c_int``; floats travel as their f32
+bit pattern, see ``f32_bits``), launches on the stream it is given,
+allocates nothing, and returns ``cudaGetLastError()``.
+
+No PyTorch header is compiled in, which keeps the build to seconds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import struct
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parents[2] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "qwen3_tts_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_lock = threading.Lock()
+_lib = None
+build_seconds = None   # wall time of the nvcc run this process made, if any
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA "
+                       "toolkit (PATH or /usr/local/cuda/bin)")
+
+
+def _sources():
+    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in _sources():
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return BUILD_DIR / f"libq3tts_{h.hexdigest()[:16]}.so"
+
+
+def load() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library; raises on failure."""
+    global _lib, build_seconds
+    with _lock:
+        if _lib is not None:
+            return _lib
+        path = library_path()
+        if not path.exists():
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+                   *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+            t0 = time.perf_counter()
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
+                    f"{res.stdout}\n{res.stderr}")
+            os.replace(tmp, path)
+            build_seconds = time.perf_counter() - t0
+        lib = ctypes.CDLL(str(path))
+        lib.q3_error_string.argtypes = [ctypes.c_int]
+        lib.q3_error_string.restype = ctypes.c_char_p
+        _lib = lib
+        return lib
+
+
+def function(name: str, sig: str):
+    """Entry point ``name`` with argument kinds ``sig`` ('p' pointer,
+    'i' int); the returned callable raises if the CUDA status is not 0."""
+    lib = load()
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
+                   for c in sig]
+    fn.restype = ctypes.c_int
+
+    def call(*args):
+        if len(args) != len(sig):
+            raise TypeError(f"{name} takes {len(sig)} arguments, "
+                            f"got {len(args)}")
+        err = fn(*args)
+        if err != 0:
+            raise RuntimeError(f"{name}: CUDA error {err} "
+                               f"({lib.q3_error_string(err).decode()})")
+
+    return call
+
+
+def f32_bits(x: float) -> int:
+    """The f32 bit pattern of ``x`` as a signed int (the C side reads it
+    back with __int_as_float), so float arguments cross ctypes exactly."""
+    return struct.unpack("<i", struct.pack("<f", float(x)))[0]
+
+
+def stream() -> int:
+    import torch
+    return torch.cuda.current_stream().cuda_stream

@@ -1,0 +1,165 @@
+"""K3: the whole talker decode step (csrc/talker_step.cu), replacing the
+TPU kernel qwen3_tts_tpu/ops/pallas/talker_step.py ::
+talker_decode_step_fused.
+
+Applies to the fused-int8 layer layout of ops/quant.quantize_talker
+(qkv_proj / gateup_proj QTensors) and a dense KV cache, 1 <= B <= 8. One
+wrapper call computes all layers; the fresh K/V rows come back in f32
+and the wrapper scatters them into the cache (in place), as the JAX
+wrapper does outside its kernel."""
+
+from __future__ import annotations
+
+import functools
+from typing import Dict, Tuple
+
+import torch
+
+from qwen3_tts_tpu_torch.ops.kernels import _build
+from qwen3_tts_tpu_torch.ops.kernels.common import (
+    NEG, bf16, lane_dot, pv, qmm, rms_heads, rms_rows, rope, sigmoid,
+    softmax_sum)
+
+MAX_B = 8
+
+
+def _dims(layers: Dict, kv: torch.Tensor):
+    qkv_t, o_t, d_t = layers["qkv_proj"], layers["o_proj"], layers["down_proj"]
+    L, H, NQKV = qkv_t.q.shape
+    Dh = layers["q_norm"].shape[-1]
+    QD = o_t.q.shape[1]
+    nH, nKV = QD // Dh, (NQKV - QD) // (2 * Dh)
+    I = d_t.q.shape[1]
+    B, S = kv.shape[2], kv.shape[3]
+    return L, H, NQKV, Dh, QD, nH, nKV, I, B, S
+
+
+def talker_step_plain(layers: Dict, x: torch.Tensor, pos: torch.Tensor,
+                      kv: torch.Tensor, rope_cos: torch.Tensor,
+                      rope_sin: torch.Tensor, eps: float):
+    """The kernel's plain PyTorch version, op for op and in the kernel's
+    summation order (ops/kernels/common.py). Returns (h (B, H) through
+    bf16 in x's dtype, fresh rows (L, 2, B, nKV, Dh) f32)."""
+    L, H, NQKV, Dh, QD, nH, nKV, I, B, S = _dims(layers, kv)
+    G = nH // nKV
+    scale = 1.0 / (Dh ** 0.5)
+    pos = pos.long()
+    n_pos = int(pos.max()) + 1
+    b_idx = torch.arange(B, device=x.device)
+    c = rope_cos.float()[pos][:, None, :]            # (B, 1, Dh)
+    s = rope_sin.float()[pos][:, None, :]
+    valid = (torch.arange(S, device=x.device)[None, :]
+             <= pos[:, None])[:, None, None, :]       # (B, 1, 1, S)
+    h = bf16(x.float())
+    rows = torch.empty((L, 2, B, nKV, Dh), dtype=torch.float32,
+                       device=x.device)
+    for l in range(L):
+        qkv = qmm(rms_rows(h, layers["input_ln"][l], eps),
+                  layers["qkv_proj"].q[l], layers["qkv_proj"].scale[l])
+        q = rms_heads(qkv[:, :QD].reshape(B, nH, Dh), layers["q_norm"][l],
+                      eps)
+        k = rms_heads(qkv[:, QD:QD + nKV * Dh].reshape(B, nKV, Dh),
+                      layers["k_norm"][l], eps)
+        v = qkv[:, QD + nKV * Dh:].reshape(B, nKV, Dh)
+        q, k = rope(q, c, s), rope(k, c, s)
+        rows[l, 0], rows[l, 1] = k, v
+        K = bf16(kv[l, 0].float())                    # (B, S, nKV, Dh)
+        V = bf16(kv[l, 1].float())
+        K[b_idx, pos] = bf16(k)
+        V[b_idx, pos] = bf16(v)
+        qb = bf16(q).reshape(B, nKV, G, 1, Dh)
+        Kh = K.permute(0, 2, 1, 3)[:, :, None]        # (B, nKV, 1, S, Dh)
+        sc = lane_dot(qb, Kh) * scale                 # (B, nKV, G, S)
+        sc = torch.where(valid, sc, torch.full_like(sc, NEG))
+        e = torch.exp(sc - sc.amax(-1, keepdim=True))
+        e = torch.where(valid, e, torch.zeros_like(e))
+        p = bf16(e / softmax_sum(e)[..., None])
+        Vh = V.permute(0, 2, 1, 3)[:, :, None]        # (B, nKV, 1, S, Dh)
+        attn = bf16(pv(p, Vh, n_pos)).reshape(B, QD)
+        h = h + qmm(attn, layers["o_proj"].q[l], layers["o_proj"].scale[l])
+        gu = qmm(rms_rows(h, layers["post_ln"][l], eps),
+                 layers["gateup_proj"].q[l], layers["gateup_proj"].scale[l])
+        g, u = gu[:, :I], gu[:, I:]
+        h = h + qmm(g * sigmoid(g) * u, layers["down_proj"].q[l],
+                    layers["down_proj"].scale[l])
+    return bf16(h).to(x.dtype), rows
+
+
+def _check(cond: bool, msg: str):
+    if not cond:
+        raise ValueError(f"talker_step: {msg}")
+
+
+def talker_step_cuda(layers: Dict, x: torch.Tensor, pos: torch.Tensor,
+                     kv: torch.Tensor, rope_cos: torch.Tensor,
+                     rope_sin: torch.Tensor, eps: float):
+    """Launch K3; same contract as talker_step_plain."""
+    L, H, NQKV, Dh, QD, nH, nKV, I, B, S = _dims(layers, kv)
+    _check(1 <= B <= MAX_B, f"batch {B} outside 1..{MAX_B}")
+    _check(Dh <= 128 and Dh % 2 == 0, f"head_dim {Dh}")
+    _check(x.dtype in (torch.bfloat16, torch.float32), f"x {x.dtype}")
+    _check(kv.dtype in (torch.bfloat16, torch.float32), f"kv {kv.dtype}")
+    _check(x.shape == (B, H), f"x shape {tuple(x.shape)}")
+    norms = [layers[n] for n in ("input_ln", "post_ln", "q_norm", "k_norm")]
+    nw_dtype = norms[0].dtype
+    _check(all(n.dtype == nw_dtype for n in norms)
+           and nw_dtype in (torch.bfloat16, torch.float32),
+           "norm weights must share one dtype, bf16 or f32")
+    quants = [layers[n] for n in ("qkv_proj", "o_proj", "gateup_proj",
+                                  "down_proj")]
+    tensors = ([x, kv, rope_cos, rope_sin] + norms
+               + [t.q for t in quants] + [t.scale for t in quants])
+    _check(all(t.is_cuda and t.is_contiguous() for t in tensors),
+           "every operand must be a contiguous CUDA tensor")
+    _check(rope_cos.dtype == torch.float32 and rope_sin.dtype == torch.float32
+           and rope_cos.shape[0] >= S, "rope tables must be f32 (>= S, Dh)")
+    dev = x.device
+    pos32 = pos.to(torch.int32).contiguous()
+    f32 = dict(dtype=torch.float32, device=dev)
+    h_out = torch.empty((B, H), dtype=x.dtype, device=dev)
+    rows = torch.empty((L, 2, B, nKV, Dh), **f32)
+    hbuf = torch.empty((B, H), **f32)
+    qkv_buf = torch.empty((B, NQKV), **f32)
+    attn_buf = torch.empty((B, QD), dtype=torch.bfloat16, device=dev)
+    gu_buf = torch.empty((B, 2 * I), **f32)
+    _fn()(x.data_ptr(), int(x.dtype == torch.bfloat16), pos32.data_ptr(),
+          rope_cos.data_ptr(), rope_sin.data_ptr(),
+          *[a.data_ptr() for t in quants for a in (t.q, t.scale)],
+          *[n.data_ptr() for n in norms], int(nw_dtype == torch.bfloat16),
+          kv.data_ptr(), int(kv.dtype == torch.bfloat16),
+          *[t.data_ptr() for t in (h_out, rows, hbuf, qkv_buf, attn_buf,
+                                   gu_buf)],
+          L, B, S, H, nH, nKV, Dh, I, _build.f32_bits(eps),
+          _build.f32_bits(1.0 / (Dh ** 0.5)), _build.stream())
+    talker_decode_step_fused.launches += 1
+    return h_out, rows
+
+
+def talker_decode_step_fused(layers: Dict, x: torch.Tensor,
+                             pos: torch.Tensor, kv: torch.Tensor,
+                             rope_cos: torch.Tensor, rope_sin: torch.Tensor,
+                             *, eps: float) -> Tuple[torch.Tensor,
+                                                     torch.Tensor]:
+    """One talker decode step over all layers: K3 on a CUDA tensor, its
+    plain version on a CPU tensor. Returns (hidden (B, H) pre-final-norm,
+    kv with the fresh rows written at pos, in place)."""
+    if x.device.type == "cpu":
+        h, rows = talker_step_plain(layers, x, pos, kv, rope_cos, rope_sin,
+                                    eps)
+    elif x.is_cuda:
+        h, rows = talker_step_cuda(layers, x, pos, kv, rope_cos, rope_sin,
+                                   eps)
+    else:
+        raise ValueError(f"talker_step: unsupported device {x.device}")
+    b_idx = torch.arange(kv.shape[2], device=kv.device)
+    kv[:, :, b_idx, pos.long()] = rows.to(kv.dtype)
+    return h, kv
+
+
+talker_decode_step_fused.launches = 0
+
+
+@functools.cache
+def _fn():
+    return _build.function("q3_talker_step", "pipppppppppppppppipipppppp"
+                                             "iiiiiiiiiip")
