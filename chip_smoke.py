@@ -6,16 +6,28 @@
 1. Set-up: the card (name, power limit), torch and CUDA versions; build
    the CUDA kernels from csrc/ (build seconds).
 2. Kernels: each hand-written kernel against its plain PyTorch version on
-   the card at the main path's shapes (full 0.6B geometry, random
-   weights): K1 qmatmul, K3 talker_step, K2 cp_decode, with the stated
-   tolerances and the median time of each beside its plain version's.
+   the card at the main paths' shapes (full 0.6B geometry, random
+   weights): K1 qmatmul, K3 talker_step, K2 cp_decode, K5
+   decode_attention, K4 paged_attention, with the stated tolerances; the
+   time of each beside its plain version's, its bound (bytes or
+   operations at the card's published peaks) and, where one PyTorch call
+   computes the same function, that call's time.
 3. Slice: TTSEngine(TTSConfig(), quantize="int8") synthesizes three short
    texts; each request must give codes in range, n_tokens * 1920 finite
-   samples, and launch every kernel.
+   samples, and launch K1, K2 and K3.
 4. Profile: one more request under torch.profiler, after the checked
    ones: device time by kernel, device busy time, launches per token.
-5. One JSON line of per-kernel results, then the card line, then
+5. Batcher: ContinuousBatcher (bf16 talker, int8 code predictor, 4 slots)
+   serves 6 requests, dense with attention_impl="pallas" (K5), then paged
+   (K4); each run twice, which must give equal codes (the paged rerun
+   with its free pages handed out in reverse order).
+6. synthesize_batch: 3 texts in one batched decode (bf16, K5).
+7. One JSON line of per-kernel results, then the card line, then
    {"ok": true, "device": {...}} as the last line.
+
+Every path is driven with the launch counters set to 0 just before it and
+read just after; a kernel of the path that was not launched fails the
+run. The launches of the kernels' comparisons are not counted.
 
 Exits non-zero (and prints no result) without a CUDA device, outside a
 checkout of the repository, or when any check fails.
@@ -34,6 +46,10 @@ import time
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
 TEXTS = ("Привет, мир!", "Hello from the port.", "Добрый день.")
+BATCH_TEXTS = ("Привет, мир!", "Hello from the port.", "Добрый день.",
+               "How are you today?", "Спасибо.", "A short one.")
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
+F32_FLOPS = 67e12               # f32 outside the tensor cores, published
 
 
 def card_line() -> str:
@@ -82,6 +98,19 @@ def close(got, ref, rtol: float, atol: float) -> bool:
                  <= atol + rtol * ref.float().abs()).all())
 
 
+def least_time(n_bytes: float, flops: float = 0.0,
+               peak: float = F32_FLOPS):
+    """(bound_ms, bound_by): the larger of bytes over HBM bandwidth and
+    operations over the peak rate for their type."""
+    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_o = flops / peak * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
 def phase_qmatmul(card: str) -> dict:
     import torch
     from qwen3_tts_tpu_torch.ops.kernels.qmatmul import (qmatmul,
@@ -118,10 +147,32 @@ def phase_qmatmul(card: str) -> dict:
               f"{t_k:.4f} ms ({gbs:.0f} GB/s of int8 weights), plain "
               f"{t_p:.4f} ms [{card}]")
     t_k, t_p = times[(1, 1024, 3072)]
+    M, K, N = 1, 1024, 3072
+    x = torch.randn((M, K), generator=g, device="cuda").bfloat16()
+    q = torch.randint(-127, 128, (K, N), generator=g, device="cuda",
+                      dtype=torch.int8)
+    s = torch.rand((N,), generator=g, device="cuda") * 0.01 + 1e-3
+    b_ms, b_by = least_time(nbytes(x, q, s) + M * N * 4, 2.0 * M * K * N, 989e12)
+    # the library's weight-only int8 product, where this torch has a CUDA
+    # kernel for it: w (N, K) int8, bf16 scales
+    lib = None
+    try:
+        qt, s16 = q.T.contiguous(), s.bfloat16()
+        qs = [qt] + [qt.clone() for _ in range((64 << 20) // (K * N))]
+        nxt = itertools.cycle(qs).__next__
+        lib = time_ms(lambda: torch._weight_int8pack_mm(x, nxt(), s16), 50,
+                      graph=True)
+        del qs
+    except (RuntimeError, AttributeError, NotImplementedError) as e:
+        print(f"  torch._weight_int8pack_mm on CUDA: unavailable "
+              f"({str(e).splitlines()[0][:120]})")
+    print(f"  bound (1,1024)x(1024,3072): {b_ms:.5f} ms ({b_by}); library "
+          f"_weight_int8pack_mm {lib} ms [{card}]")
     return {"name": "qmatmul", "route": "cuda",
             "source": "qwen3_tts_tpu_torch/csrc/qmatmul.cu",
             "replaces": "qwen3_tts_tpu/ops/pallas/qmatmul.py:48",
             "max_abs_err": worst, "ms": t_k, "plain_ms": t_p,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
             "shape": "(1,1024)x(1024,3072)"}
 
 
@@ -137,7 +188,7 @@ def phase_talker_step(eng, card: str) -> dict:
                                 cfg.head_dim, cfg.rope_theta)
     eps = cfg.rms_norm_eps
     g = torch.Generator(device="cuda").manual_seed(3)
-    worst, t = 0.0, None
+    worst, t, wbytes, kvbytes, pos1 = 0.0, None, 0, 0, 0
     for B in (1, 4):
         x = (torch.randn((B, cfg.hidden_size), generator=g, device="cuda")
              * 0.1).bfloat16()
@@ -182,17 +233,27 @@ def phase_talker_step(eng, card: str) -> dict:
             wbytes = sum(layers[n].q.numel() + 4 * layers[n].scale.numel()
                          for n in ("qkv_proj", "o_proj", "gateup_proj",
                                    "down_proj"))
-            kvbytes = (cfg.num_layers * 2 * (int(pos[0]) + 1)
+            pos1 = int(pos[0])
+            kvbytes = (cfg.num_layers * 2 * (pos1 + 1)
                        * cfg.num_kv_heads * cfg.head_dim * 2)
             print(f"  time B=1: kernel {t[0]:.4f} ms device (CUDA graph "
                   f"replay; {(wbytes + kvbytes) / t[0] / 1e6:.0f} GB/s of "
                   f"weights + KV), {t_call:.4f} ms per eager call, plain "
                   f"{t[1]:.4f} ms; kernel at pos 64: {t64:.4f} ms device "
                   f"[{card}]")
+    # bound of the timed call (B=1, pos[0]): weights, the K/V rows it
+    # reads, x and the norms once; h and the fresh rows written
+    norms = nbytes(*[layers[n] for n in ("input_ln", "post_ln", "q_norm",
+                                         "k_norm")])
+    rows_out = cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim * 4
+    b_ms, b_by = least_time(wbytes + kvbytes + norms + 2 * cfg.hidden_size * 2
+                       + rows_out)
+    print(f"  bound B=1 pos {pos1}: {b_ms:.4f} ms ({b_by}) [{card}]")
     return {"name": "talker_step", "route": "cuda",
             "source": "qwen3_tts_tpu_torch/csrc/talker_step.cu",
             "replaces": "qwen3_tts_tpu/ops/pallas/talker_step.py:266",
             "max_abs_err": worst, "ms": t[0], "plain_ms": t[1],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "shape": f"B=1 S={S} L={cfg.num_layers}"}
 
 
@@ -207,7 +268,7 @@ def phase_cp_decode(eng, card: str) -> dict:
     cos, sin = tfm.rope_cos_sin(torch.arange(S, device="cuda"),
                                 cfg.head_dim, cfg.rope_theta)
     g = torch.Generator(device="cuda").manual_seed(5)
-    worst, t = 0, None
+    worst, t, steps, step_bytes, lay = 0, None, 0, 0, None
     for B in (1, 4):
         kv = torch.zeros((cfg.num_layers, 2, B, S, cfg.num_kv_heads,
                           cfg.head_dim), device="cuda", dtype=torch.bfloat16)
@@ -267,10 +328,30 @@ def phase_cp_decode(eng, card: str) -> dict:
                   f"(CUDA graph replay; {gbs:.0f} GB/s of weights), "
                   f"{t_call:.4f} ms per eager call, plain "
                   f"{t[1]:.4f} ms [{card}]")
+    # bound (B=1): every input once -- the int8 stack and its scales, the
+    # 14 lm_heads used, the mtp projection, the norms, the prefill K/V
+    # rows, one embedding row per step -- and the tokens written. (Each
+    # step streams the stack again in the kernel, 14 x step_bytes: the
+    # stack exceeds the L2.)
+    heads = cpp["lm_heads"]
+    once = (sum(lay[n].q.numel() + 4 * lay[n].scale.numel()
+                for n in ("q_proj", "k_proj", "v_proj", "o_proj",
+                          "gate_proj", "up_proj", "down_proj"))
+            + steps * (heads.q[1].numel() + 4 * heads.scale[1].numel())
+            + nbytes(cpp["mtp_proj_w"], cpp["mtp_proj_b"],
+                     cpp["final_norm"], *[lay[n] for n in (
+                         "input_ln", "post_ln", "q_norm", "k_norm")])
+            + cfg.num_layers * 2 * 2 * cfg.num_kv_heads * cfg.head_dim * 2
+            + steps * cfg.hidden_size * 2 + steps * 4)
+    b_ms, b_by = least_time(once)
+    print(f"  bound B=1: {b_ms:.4f} ms ({b_by}; inputs once); streaming the "
+          f"stack per step: {steps * step_bytes / HBM_BYTES_PER_S * 1e3:.4f}"
+          f" ms [{card}]")
     return {"name": "cp_decode", "route": "cuda",
             "source": "qwen3_tts_tpu_torch/csrc/cp_decode.cu",
             "replaces": "qwen3_tts_tpu/ops/pallas/cp_decode.py:365",
             "max_abs_err": worst, "ms": t[0], "plain_ms": t[1],
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "shape": "B=1, 14 steps, 5 layers"}
 
 
@@ -300,8 +381,8 @@ def phase_slice(eng, card: str, counters: dict) -> dict:
         check(len(res.audio_int16) == n * 1920, "duration math broken")
         check(bool(np.isfinite(res.audio_int16.astype(np.float64)).all()),
               "non-finite audio")
-        for k, d in grew.items():
-            check(d > 0, f"kernel {k} was not launched by request {i}")
+        for k in ("qmatmul", "talker_step", "cp_decode"):
+            check(grew[k] > 0, f"kernel {k} was not launched by request {i}")
     return {k: fn.launches for k, fn in counters.items()}
 
 
@@ -328,6 +409,316 @@ def phase_profile(eng, card: str) -> None:
           f"{launches} kernel launches ({launches / n:.0f}/token) [{card}]")
     print(ka.table(sort_by="self_device_time_total", row_limit=15,
                    max_name_column_width=50))
+
+def _attn_inputs(g, B, S, dtype, Hq=16, Hkv=8, Dh=128):
+    import torch
+    q = torch.randn((B, Hq, Dh), generator=g, device="cuda").to(dtype)
+    k = torch.randn((B, S, Hkv, Dh), generator=g, device="cuda").to(dtype)
+    v = torch.randn((B, S, Hkv, Dh), generator=g, device="cuda").to(dtype)
+    return q, k, v
+
+
+def _rel_err(got, ref) -> tuple:
+    err = float((got.float() - ref.float()).abs().max())
+    return err, float(ref.float().abs().max())
+
+
+def phase_decode_attention(card: str) -> dict:
+    """K5 at the talker's geometry (Hq 16, Hkv 8, Dh 128, S 512) against
+    its plain version, f32 and bf16, B = 1 and 4, positions with 0 and
+    511; its time at B = 4 bf16 (the batcher's step) beside its bound and
+    scaled_dot_product_attention's time on the same inputs."""
+    import torch
+    import torch.nn.functional as F
+    from qwen3_tts_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_cuda, decode_attention_plain)
+    g = torch.Generator(device="cuda").manual_seed(7)
+    S, worst = 512, 0.0
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        for B in (1, 4):
+            q, k, v = _attn_inputs(g, B, S, dtype)
+            pos = torch.tensor([0, S - 1, 200, 37][:B] if B > 1 else [S - 1],
+                               device="cuda")
+            ref = decode_attention_plain(q, k, v, pos)
+            got = decode_attention_cuda(q, k, v, pos)
+            torch.cuda.synchronize()
+            err, mx = _rel_err(got, ref)
+            print(f"K5 decode_attention {str(dtype)[6:]} B={B} pos="
+                  f"{pos.tolist()}: max_abs_err {err:.3e} (bound "
+                  f"{tol * mx:.3e})")
+            check(got.dtype == dtype and err <= tol * mx,
+                  f"K5 disagrees with its plain version ({dtype}, B={B})")
+            worst = max(worst, err)
+    B, dtype = 4, torch.bfloat16
+    q, k, v = _attn_inputs(g, B, S, dtype)
+    pos = torch.tensor([0, S - 1, 200, 37], device="cuda")
+    # 28 layers' caches, so the K/V come from HBM as in a decode step
+    ks = [k] + [k.clone() for _ in range(27)]
+    vs = [v] + [v.clone() for _ in range(27)]
+    it = itertools.cycle(range(28)).__next__
+
+    def k5():
+        i = it()
+        return decode_attention_cuda(q, ks[i], vs[i], pos)
+    t_k = time_ms(k5, 56, graph=True)
+    t_p = time_ms(lambda: decode_attention_plain(q, k, v, pos), 2, 3)
+    rows = int((pos + 1).sum())
+    Hkv, Dh, Hq = 8, 128, 16
+    b_ms, b_by = least_time(nbytes(q, pos) + 2 * rows * Hkv * Dh * 2
+                       + q.numel() * 2, 4.0 * rows * (Hq // Hkv) * Hkv * Dh)
+    lib = None
+    try:
+        mask = (torch.arange(S, device="cuda")[None, :]
+                <= pos[:, None])[:, None, None, :]
+
+        def sdpa(i=None):
+            i = it() if i is None else i
+            return F.scaled_dot_product_attention(
+                q[:, :, None], ks[i].transpose(1, 2), vs[i].transpose(1, 2),
+                attn_mask=mask, enable_gqa=True)
+        lib_err, _ = _rel_err(sdpa(0).reshape(B, -1),
+                              decode_attention_cuda(q, ks[0], vs[0], pos))
+        lib = time_ms(sdpa, 56, graph=True)
+        print(f"  scaled_dot_product_attention (GQA, bool mask): "
+              f"{lib:.5f} ms, max_abs_err vs K5 {lib_err:.3e}")
+    except (RuntimeError, TypeError) as e:
+        print(f"  scaled_dot_product_attention: unavailable "
+              f"({str(e).splitlines()[0][:120]})")
+    del ks, vs
+    print(f"  time B=4 bf16 S={S}: kernel {t_k:.5f} ms device (CUDA graph "
+          f"replay, K/V from HBM), plain {t_p:.3f} ms; bound {b_ms:.5f} ms "
+          f"({b_by}: {rows} K/V rows) [{card}]")
+    return {"name": "decode_attention", "route": "cuda",
+            "source": "qwen3_tts_tpu_torch/csrc/decode_attention.cu",
+            "replaces": "qwen3_tts_tpu/ops/pallas/decode_attention.py:85",
+            "max_abs_err": worst, "ms": t_k, "plain_ms": t_p,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+            "shape": f"B=4 Hq=16 Hkv=8 Dh=128 S={S} bf16"}
+
+
+def phase_paged_attention(card: str) -> dict:
+    """K4 at the paged batcher's shapes (B 4, pages of 64, 9 per row, a
+    pool of 37 with page 0 reserved, a scrambled table) against its plain
+    version, f32 and bf16, and against K5 over the gathered rows (f32)."""
+    import torch
+    from qwen3_tts_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_cuda)
+    from qwen3_tts_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention_cuda, paged_attention_plain, paged_gather_kv)
+    g = torch.Generator(device="cuda").manual_seed(9)
+    B, psz, MAXP, P, Hq, Hkv, Dh = 4, 64, 9, 37, 16, 8, 128
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(9))
+    table = (perm[:B * MAXP] + 1).reshape(B, MAXP).to(torch.int32).cuda()
+    pos = torch.tensor([0, MAXP * psz - 1, 300, 64], device="cuda")
+    table[0, 1:] = 0                   # row 0 holds one page
+    worst = 0.0
+    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
+        q = torch.randn((B, Hq, Dh), generator=g, device="cuda").to(dtype)
+        pool = torch.randn((2, P, psz, Hkv, Dh), generator=g,
+                           device="cuda").to(dtype)
+        ref = paged_attention_plain(q, pool[0], pool[1], table, pos)
+        got = paged_attention_cuda(q, pool[0], pool[1], table, pos)
+        torch.cuda.synchronize()
+        err, mx = _rel_err(got, ref)
+        print(f"K4 paged_attention {str(dtype)[6:]} B={B} pos={pos.tolist()}"
+              f": max_abs_err {err:.3e} vs plain (bound {tol * mx:.3e})")
+        check(err <= tol * mx,
+              f"K4 disagrees with its plain version ({dtype})")
+        worst = max(worst, err)
+        if dtype == torch.float32:
+            kv = paged_gather_kv(pool, table)
+            dense = decode_attention_cuda(q, kv[0].contiguous(),
+                                          kv[1].contiguous(), pos)
+            err, mx = _rel_err(got, dense)
+            print(f"  K4 vs K5 over the same logical rows (f32): "
+                  f"max_abs_err {err:.3e} (bound {1e-5 * mx:.3e})")
+            check(err <= 1e-5 * mx, "K4 disagrees with K5 on the same rows")
+    pools = [pool] + [pool.clone() for _ in range(27)]
+    it = itertools.cycle(range(28)).__next__
+    t_k = time_ms(lambda: paged_attention_cuda(q, *pools[it()], table, pos),
+                  56, graph=True)
+    t_p = time_ms(lambda: paged_attention_plain(q, pool[0], pool[1], table,
+                                                pos), 2, 3)
+    del pools
+    rows = int((pos + 1).sum())
+    b_ms, b_by = least_time(nbytes(q, table, pos) + 2 * rows * Hkv * Dh * 2
+                       + B * Hq * Dh * 4, 4.0 * rows * Hq * Dh)
+    print(f"  time B=4 bf16 pool: kernel {t_k:.5f} ms device (CUDA graph "
+          f"replay, pages from HBM), plain {t_p:.3f} ms; bound {b_ms:.5f} "
+          f"ms ({b_by}: {rows} K/V rows); no single PyTorch call does a "
+          f"paged gather plus attention [{card}]")
+    return {"name": "paged_attention", "route": "cuda",
+            "source": "qwen3_tts_tpu_torch/csrc/paged_attention.cu",
+            "replaces": "qwen3_tts_tpu/ops/pallas/paged_attention.py:147",
+            "max_abs_err": worst, "ms": t_k, "plain_ms": t_p,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "shape": f"B=4 psz={psz} MAXP={MAXP} P={P} bf16"}
+
+
+def _encode(text: str):
+    """Byte-fallback ids padded to the engine's text bucket."""
+    import numpy as np
+    from qwen3_tts_tpu_torch.engine.engine import _bucket
+    raw = list(text.encode("utf-8"))
+    ids = np.zeros((_bucket(len(raw)),), np.int32)
+    ids[:len(raw)] = raw
+    return ids, len(raw)
+
+
+def _serve(b, card: str, label: str, counters: dict):
+    """Serve BATCH_TEXTS through batcher b (step() driven), with the
+    counters set to 0 before and read after. Returns (codes per request,
+    launches)."""
+    import numpy as np
+    import torch
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [b.submit(*_encode(t), seed=i) for i, t in enumerate(BATCH_TEXTS)]
+    steps = 0
+    while not all(f.done() for f in futs):
+        check(steps < 400, f"{label}: requests not done after 400 steps")
+        b.step()
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    codes, total_audio = [], 0
+    for i, f in enumerate(futs):
+        c, a = f.result(timeout=0)
+        r = f.request
+        n = len(c)
+        check(n >= 1, f"{label}: request {i} gave no tokens")
+        check(bool(((c >= 0) & (c < 2048)).all()),
+              f"{label}: codes out of [0, 2048)")
+        check(len(a) == n * 1920, f"{label}: duration math broken")
+        check(bool(np.isfinite(a.astype(np.float64)).all()),
+              f"{label}: non-finite audio")
+        total_audio += len(a) / 24000
+        codes.append(c)
+        print(f"  {label} request {i}: n_tokens={n} wall "
+              f"{r.t_done - r.t_submit:.3f} s (queued "
+              f"{r.t_admit - r.t_submit:.3f} s, first token after "
+              f"{r.t_first - r.t_admit:.3f} s) [{card}]")
+    check(all(r is None for r in b._slot_req), f"{label}: a slot is busy")
+    print(f"{label}: {len(futs)} requests, {b.batch_size} slots, {steps} "
+          f"scheduler steps, wall {wall:.3f} s, {total_audio:.2f} s of "
+          f"audio, {total_audio / wall:.3f} audio-s per wall-s, launches "
+          f"{launches} [{card}]")
+    return codes, launches
+
+
+def profile_batcher_step(b, card: str) -> None:
+    """One scheduler step (admission of 4 requests and a 16-token chunk)
+    under torch.profiler: device busy time per loop step and the kernels
+    that take it; the requests are then drained outside the profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    futs = [b.submit(*_encode(t), seed=i)
+            for i, t in enumerate(BATCH_TEXTS[:4])]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        b.step()
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    ka = prof.key_averages()
+    busy = sum(e.self_device_time_total for e in ka
+               if str(e.device_type).endswith("CUDA")) / 1e3
+    launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
+    steps = b.decode_chunk
+    print(f"batcher profile: one scheduler step (4 admissions + "
+          f"{steps} loop steps), wall {wall:.3f} s under the profiler, "
+          f"device busy {busy:.1f} ms ({busy / steps:.2f} ms per loop "
+          f"step), {launches} kernel launches ({launches / steps:.0f} per "
+          f"loop step) [{card}]")
+    print(ka.table(sort_by="self_device_time_total", row_limit=12,
+                   max_name_column_width=50))
+    while not all(f.done() for f in futs):
+        b.step()
+
+
+def phase_batcher(params, card: str, counters: dict) -> dict:
+    """The continuous batcher at full geometry: dense with
+    attention_impl="pallas" (K5), then paged (K4), each run twice."""
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch.config import TalkerConfig, TTSConfig
+    from qwen3_tts_tpu_torch.serve.batching import ContinuousBatcher
+    cfg = TTSConfig(talker=TalkerConfig(attention_impl="pallas"))
+    runs = {}
+    for paged in (False, True):
+        label = "paged batcher" if paged else "dense batcher"
+        kw = dict(paged=True, page_size=64) if paged else {}
+        t0 = time.perf_counter()
+        b = ContinuousBatcher(cfg, params, batch_size=4, decode_chunk=16,
+                              device="cuda", **kw)
+        torch.cuda.synchronize()
+        print(f"{label}: ready in {time.perf_counter() - t0:.1f} s "
+              f"(bf16 talker, int8 code predictor)")
+        codes, launches = _serve(b, card, label, counters)
+        need = ("paged_attention" if paged else "decode_attention",
+                "cp_decode", "qmatmul")
+        for k in need:
+            check(launches[k] > 0, f"{label}: {k} was not launched")
+        if paged:
+            check(len(b._free_pages) == b.pool_pages - 1,
+                  "paged batcher: pages not all back in the free list")
+            b._free.reverse()      # hand out other pages the second time
+        codes2, _ = _serve(b, card, label + " (rerun)", counters)
+        if not paged:
+            profile_batcher_step(b, card)
+        same = all(np.array_equal(x, y) for x, y in zip(codes, codes2))
+        print(f"{label}: rerun codes equal: {same}")
+        check(same, f"{label}: a rerun gave other codes")
+        if paged:
+            check(len(b._free_pages) == b.pool_pages - 1,
+                  "paged batcher: pages not all back after the rerun")
+            dense = runs[False][0]
+            eq = sum(int((x[:len(y)] == y[:len(x)]).all(-1).sum())
+                     for x, y in zip(codes, dense))
+            tot = sum(max(len(x), len(y)) for x, y in zip(codes, dense))
+            print(f"paged vs dense: {eq} of {tot} code rows equal (K4 and "
+                  f"K5 add up in other orders, so the streams may part)")
+        runs[paged] = (codes, launches)
+        del b
+    return {"decode_attention": runs[False][1]["decode_attention"],
+            "paged_attention": runs[True][1]["paged_attention"]}
+
+
+def phase_synth_batch(card: str, counters: dict) -> None:
+    """TTSEngine.synthesize_batch: 3 texts in one batched decode, bf16
+    talker with attention_impl="pallas"."""
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch.config import TalkerConfig, TTSConfig
+    from qwen3_tts_tpu_torch.engine.engine import TTSEngine
+    eng = TTSEngine(TTSConfig(talker=TalkerConfig(attention_impl="pallas")),
+                    device="cuda", seed=1)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = eng.synthesize_batch(list(TEXTS), seed=3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for i, r in enumerate(res):
+        check(r.n_tokens >= 1 and r.codes.shape == (r.n_tokens, 16),
+              "synthesize_batch: bad codes")
+        check(len(r.audio_int16) == r.n_tokens * 1920,
+              "synthesize_batch: duration math broken")
+        check(bool(np.isfinite(r.audio_int16.astype(np.float64)).all()),
+              "synthesize_batch: non-finite audio")
+    check(launches["decode_attention"] > 0,
+          "synthesize_batch: K5 was not launched")
+    audio = sum(len(r.audio_int16) for r in res) / 24000
+    print(f"synthesize_batch: n_tokens {[r.n_tokens for r in res]}, wall "
+          f"{wall:.3f} s, {audio:.2f} s of audio, RTF {wall / audio:.4f}, "
+          f"stages { {k: round(v, 4) for k, v in res[0].timings.items()} }, "
+          f"launches {launches} [{card}]")
 
 
 def main() -> int:
@@ -356,7 +747,12 @@ def main() -> int:
 
     from qwen3_tts_tpu_torch.config import TTSConfig
     from qwen3_tts_tpu_torch.engine.engine import TTSEngine
+    from qwen3_tts_tpu_torch.io.weights import init_random_params
     from qwen3_tts_tpu_torch.ops.kernels.cp_decode import cp_decode_steps
+    from qwen3_tts_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention)
+    from qwen3_tts_tpu_torch.ops.kernels.paged_attention import (
+        paged_decode_attention)
     from qwen3_tts_tpu_torch.ops.kernels.qmatmul import qmatmul
     from qwen3_tts_tpu_torch.ops.kernels.talker_step import (
         talker_decode_step_fused)
@@ -368,14 +764,24 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
 
     kernels = [phase_qmatmul(card), phase_talker_step(eng, card),
-               phase_cp_decode(eng, card)]
+               phase_cp_decode(eng, card), phase_decode_attention(card),
+               phase_paged_attention(card)]
     counters = {"qmatmul": qmatmul, "talker_step": talker_decode_step_fused,
-                "cp_decode": cp_decode_steps}
+                "cp_decode": cp_decode_steps,
+                "decode_attention": decode_attention,
+                "paged_attention": paged_decode_attention}
     launches = phase_slice(eng, card, counters)
+    for k in ("qmatmul", "talker_step", "cp_decode"):
+        check(launches[k] > 0, f"{k} never launched in the slice")
+    phase_profile(eng, card)
+    del eng
+    params = init_random_params(TTSConfig(), seed=0,
+                                dtype=torch.bfloat16, device="cuda")
+    launches.update(phase_batcher(params, card, counters))
+    del params
+    phase_synth_batch(card, counters)
     for k in kernels:
         k["launches"] = launches[k["name"]]
-        check(k["launches"] > 0, f"{k['name']} never launched in the slice")
-    phase_profile(eng, card)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

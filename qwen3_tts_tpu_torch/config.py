@@ -1,5 +1,5 @@
 """Geometry and sampling configuration of the port: the part of
-qwen3_tts_tpu/config.py that single-request synthesis reads, with the
+qwen3_tts_tpu/config.py that synthesis and the batcher read, with the
 same fields, defaults and constants (tests/test_torch_modules.py holds
 the two equal). The port keeps its own copy so that it imports nothing
 of the JAX package.
@@ -29,6 +29,10 @@ class TalkerConfig:
     text_embed_dim: int = 2048
     codec_vocab_size: int = 3072
     max_seq_len: int = 512
+    # "xla": decode attention in plain torch ops; "pallas": the
+    # hand-written decode-attention kernel (K5, ops/kernels/
+    # decode_attention.py), the port of the JAX package's Pallas kernel
+    attention_impl: str = "xla"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +48,7 @@ class CodePredictorConfig:
     num_groups: int = 15          # groups 1..15 predicted per talker token
     group_vocab_size: int = 2048  # per-group codec vocab
     max_seq_len: int = 16         # 2 prefill + 14 decode positions
+    attention_impl: str = "xla"
 
 
 @dataclasses.dataclass(frozen=True)

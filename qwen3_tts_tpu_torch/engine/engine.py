@@ -1,12 +1,16 @@
-"""TTSEngine: single-request synthesis, text -> codes -> 24 kHz int16
-audio. Twin of the non-streaming path of qwen3_tts_tpu/engine/engine.py.
+"""TTSEngine: synthesis, text -> codes -> 24 kHz int16 audio, one
+request (``synthesize``) or several in one batched decode
+(``synthesize_batch``). Twin of the non-streaming paths of
+qwen3_tts_tpu/engine/engine.py.
 
 tokenize -> dual-stream prefix -> talker prefill -> decode loop
 (engine/generate.py) -> FP32 vocoder over a bucketed window with at
 least one zero-code lookahead token -> crop to n_tokens * 1920 samples
 -> optional WAV. With ``quantize="int8"`` the decode loop runs the three
 hand-written kernels: K1 (int8 products), K2 (code predictor steps) and
-K3 (talker decode step).
+K3 (talker decode step, up to 8 rows). With ``TalkerConfig(
+attention_impl="pallas")`` a per-layer talker step's attention runs on
+K5.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from qwen3_tts_tpu_torch.models import talker as tk
 from qwen3_tts_tpu_torch.models import vocoder as voc
 from qwen3_tts_tpu_torch.models.code_predictor import CodePredictor
 from qwen3_tts_tpu_torch.ops import quant
+from qwen3_tts_tpu_torch.ops import sampling as smp
 
 
 @dataclasses.dataclass
@@ -58,6 +63,31 @@ def _bucket(n: int) -> int:
         if n <= b:
             return b
     return _TEXT_BUCKETS[-1]
+
+
+def vocode(vp: Dict, codes: np.ndarray, cfg, device) -> np.ndarray:
+    """codes (n, 16) -> f32 audio (n * 1920,) through the vocoder weights
+    vp: one window of voc_bucket(n + 1) tokens, so the last token always
+    has a zero-code lookahead token, cropped to n tokens."""
+    n = len(codes)
+    if n == 0:
+        return np.zeros((0,), np.float32)
+    W = voc.voc_bucket(n + 1)
+    buf = torch.zeros((1, W, 16), dtype=torch.int32)
+    buf[0, :n] = torch.from_numpy(np.asarray(codes[:, :16], np.int32))
+    audio = voc.decode(vp, buf.to(device), cfg)
+    return audio[0, :n * SAMPLES_PER_TOKEN].cpu().numpy()
+
+
+def check_one_window(n: int) -> None:
+    """The batched tiers vocode one window of at most 256 tokens, as the
+    JAX package does; it renders longer utterances with the chunked
+    synthesize_exact, which is not ported yet."""
+    if n > 256:
+        raise NotImplementedError(
+            f"{n} tokens exceed one vocoder window (256): the chunked "
+            "exact vocoder is not ported yet (ROADMAP queue 1: "
+            "synthesize_exact, with the streaming slice)")
 
 
 @contextlib.contextmanager
@@ -130,14 +160,7 @@ class TTSEngine:
         """codes (n, 16) -> f32 audio (n * 1920,): one window of
         voc_bucket(n + 1) tokens, so the last token always has a
         zero-code lookahead token, cropped to n tokens."""
-        n = len(codes)
-        if n == 0:
-            return np.zeros((0,), np.float32)
-        W = voc.voc_bucket(n + 1)
-        buf = torch.zeros((1, W, 16), dtype=torch.int32)
-        buf[0, :n] = torch.from_numpy(np.asarray(codes[:, :16], np.int32))
-        audio = voc.decode(self._vp, buf.to(self.device), self.cfg.vocoder)
-        return audio[0, :n * SAMPLES_PER_TOKEN].cpu().numpy()
+        return vocode(self._vp, codes, self.cfg.vocoder, self.device)
 
     @torch.inference_mode()
     def synthesize(self, text: str, language: str = "russian",
@@ -166,7 +189,6 @@ class TTSEngine:
 
         timings: Dict[str, float] = {}
         t_start = time.perf_counter()
-        rng = torch.Generator(device=self.device).manual_seed(seed)
         with _stage(timings, "tokenize"):
             text_ids, n_text = self._encode_text(text)
         with _stage(timings, "decode"):
@@ -174,9 +196,10 @@ class TTSEngine:
             n_text_t = torch.tensor([n_text], dtype=torch.int32,
                                     device=self.device)
             state = gen.init_state(self._tp, prefix[None], plen[None],
-                                   n_text_t, self.cfg, budget=budget)
+                                   n_text_t, smp.batch_keys(seed, 1),
+                                   self.cfg, budget=budget)
             state = gen.run_steps(self._tp, self._cpp, state, self.cfg,
-                                  budget, rng)
+                                  budget)
             n = int(state.n_codes[0])
             codes = state.codes[0, :n].cpu().numpy()
         with _stage(timings, "vocoder"):
@@ -189,3 +212,62 @@ class TTSEngine:
             audio_int16=audio, codes=codes, n_tokens=n,
             timings=timings, total_seconds=total,
             rtf=total / seconds if seconds > 0 else float("inf"))
+
+    @torch.inference_mode()
+    def synthesize_batch(self, texts, languages=None, seed: int = 0,
+                         max_tokens: Optional[int] = None):
+        """Several texts in ONE batched decode: every text is padded to
+        the largest bucket, one batched prefix and prefill, one batched
+        loop, then each row is vocoded at voc_bucket(n + 1). Row i draws
+        with key batch_keys(seed, B)[i] (row 0 as synthesize(seed=seed)).
+        ``max_tokens`` caps every row. Returns one SynthesisResult per
+        text, sharing the timing fields."""
+        if not len(texts):
+            return []
+        languages = languages or ["russian"] * len(texts)
+        for lang in languages:
+            if lang not in SUPPORTED_LANGUAGES:
+                raise ValueError(f"unsupported language {lang!r}")
+        if max_tokens is not None and max_tokens < 1:
+            raise ValueError(f"max_tokens must be >= 1, got {max_tokens}")
+        budget = (min(int(max_tokens), self.cfg.max_tokens)
+                  if max_tokens is not None else self.cfg.max_tokens)
+        B = len(texts)
+        timings: Dict[str, float] = {}
+        t_start = time.perf_counter()
+        with _stage(timings, "tokenize"):
+            encoded = [self._encode_text(t) for t in texts]
+            bucket = max(int(ids.shape[0]) for ids, _ in encoded)
+            ids = torch.zeros((B, bucket), dtype=torch.int32,
+                              device=self.device)
+            for i, (row, _) in enumerate(encoded):
+                ids[i, :row.shape[0]] = row
+            n_text = torch.tensor([n for _, n in encoded], dtype=torch.int32,
+                                  device=self.device)
+        with _stage(timings, "decode"):
+            prefixes = [tk.build_prefix(self._tp, ids[i], encoded[i][1])
+                        for i in range(B)]
+            prefix = torch.stack([p for p, _ in prefixes])
+            plen = torch.stack([n for _, n in prefixes])
+            state = gen.init_state(self._tp, prefix, plen, n_text,
+                                   smp.batch_keys(seed, B), self.cfg,
+                                   budget=budget)
+            state = gen.run_steps(self._tp, self._cpp, state, self.cfg,
+                                  budget)
+            n_codes = state.n_codes.cpu().numpy()
+            codes_all = state.codes.cpu().numpy()
+        rows = []
+        with _stage(timings, "vocoder"):
+            for i in range(B):
+                codes = codes_all[i, :int(n_codes[i])]
+                check_one_window(len(codes))
+                rows.append((codes, voc.to_int16(self.vocode(codes))))
+        total = time.perf_counter() - t_start
+        results = []
+        for codes, audio in rows:
+            dur = len(audio) / SAMPLE_RATE
+            results.append(SynthesisResult(
+                audio_int16=audio, codes=codes, n_tokens=len(codes),
+                timings=dict(timings), total_seconds=total,
+                rtf=total / dur if dur > 0 else float("inf")))
+        return results

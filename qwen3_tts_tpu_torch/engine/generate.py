@@ -6,6 +6,10 @@ Feedback: codec_embedding[code_0] + sum_g cp codec_embs[g-1][code_g]
 + tts_pad_embed. Rows decode in lockstep; a finished row freezes. All
 shapes are fixed, so a step enqueues its work without a host round trip:
 the loop reads ``done`` back only every ``DONE_CHECK_STRIDE`` steps.
+Every row carries its own key, and its draws hash (key, its token
+counter, draw site) (ops/sampling.py), so a row decodes the same codes
+whatever else shares the batch. The talker KV is a dense cache or a
+``tfm.PagedKV`` (the paged batcher).
 """
 
 from __future__ import annotations
@@ -34,7 +38,8 @@ DONE_CHECK_STRIDE = 8
 class GenState:
     """State of the decode loop; every field a fixed-shape tensor."""
 
-    kv: torch.Tensor        # talker KV cache (L, 2, B, S, Hkv, Dh)
+    kv: object              # talker KV: dense (L, 2, B, S, Hkv, Dh) or
+    #                         tfm.PagedKV
     pos: torch.Tensor       # (B,) next talker write position
     hidden: torch.Tensor    # (B, H) last talker hidden (post final norm)
     ring: torch.Tensor      # (B, W) last code_0 window (-1 empty)
@@ -43,6 +48,7 @@ class GenState:
     codes: torch.Tensor     # (B, T_max, 16) int32 output buffer
     n_text: torch.Tensor    # (B,) text-token counts (EOS pacing)
     budget: torch.Tensor    # (B,) per-row token budget (<= cfg.max_tokens)
+    key: torch.Tensor       # (B,) int64 per-row keys (ops/sampling.py)
 
 
 def prefill_state(talker_params: dict, prefix: torch.Tensor,
@@ -56,10 +62,11 @@ def prefill_state(talker_params: dict, prefix: torch.Tensor,
     return tk.prefill(talker_params, prefix, prefix_len, kv, tcfg)
 
 
-def assemble_state(hidden: torch.Tensor, kv: torch.Tensor,
-                   prefix_len: torch.Tensor, n_text: torch.Tensor,
-                   cfg: TTSConfig, budget=None) -> GenState:
-    """The per-request loop state around a prefill result."""
+def assemble_state(hidden: torch.Tensor, kv, prefix_len: torch.Tensor,
+                   n_text: torch.Tensor, key: torch.Tensor, cfg: TTSConfig,
+                   budget=None) -> GenState:
+    """The per-request loop state around a prefill result; key (B,) int64
+    row keys (ops/sampling.batch_keys)."""
     B, dev = hidden.shape[0], hidden.device
     i32 = dict(dtype=torch.int32, device=dev)
     cap = torch.full((B,), cfg.max_tokens, **i32)
@@ -74,21 +81,22 @@ def assemble_state(hidden: torch.Tensor, kv: torch.Tensor,
         n_text=torch.as_tensor(n_text, **i32).reshape(B),
         budget=cap if budget is None else torch.minimum(
             torch.as_tensor(budget, **i32).expand(B), cap),
+        key=torch.as_tensor(key, dtype=torch.int64).to(dev).reshape(B),
     )
 
 
 def init_state(talker_params: dict, prefix: torch.Tensor,
                prefix_len: torch.Tensor, n_text: torch.Tensor,
-               cfg: TTSConfig, kv_dtype=None, budget=None) -> GenState:
+               key: torch.Tensor, cfg: TTSConfig, kv_dtype=None,
+               budget=None) -> GenState:
     """Prefill the talker and build the initial loop state."""
     hidden, kv = prefill_state(talker_params, prefix, prefix_len, cfg,
                                kv_dtype)
-    return assemble_state(hidden, kv, prefix_len, n_text, cfg, budget)
+    return assemble_state(hidden, kv, prefix_len, n_text, key, cfg, budget)
 
 
 def _loop_body(state: GenState, talker_params: dict, cp_params: dict,
                tts_pad_embed: torch.Tensor, cfg: TTSConfig,
-               gen: torch.Generator,
                rope_table: Optional[tuple] = None) -> GenState:
     """One token for every row. The KV cache and the codes buffer are
     updated in place; a frozen row rewrites its own slot harmlessly."""
@@ -98,10 +106,12 @@ def _loop_body(state: GenState, talker_params: dict, cp_params: dict,
 
     # 1. code_0 from the current hidden
     logits = tk.codec_logits(talker_params, state.hidden)
+    seeds = smp.token_seeds(state.key, state.n_codes)        # (B, 3)
     code0 = smp.sample_code0(logits, state.ring, state.n_codes,
-                             state.n_text, gen, scfg)
+                             state.n_text, seeds[:, smp.SITE_CODE0], scfg)
     is_eos = (code0 == CODEC_EOS_ID) | (code0 >= NUM_AUDIO_CODES)
-    S = state.kv.shape[3]
+    # per-row bound: the dense S, or the row's allocated pages (paged)
+    S = tfm.kv_capacity(state.kv)
     has_room = (state.n_codes < state.budget) & (state.pos < S - 1)
     active = ~state.done & ~is_eos & has_room
     act_i = active.to(torch.int32)
@@ -112,7 +122,8 @@ def _loop_body(state: GenState, talker_params: dict, cp_params: dict,
     # 2. code predictor: groups 1..15 (always computed; masked commit)
     code0_safe = torch.where(active, code0, torch.zeros_like(code0))
     c0_embed = talker_params["codec_embedding"][code0_safe.long()]
-    groups = cp.predict_codes(cp_params, state.hidden, c0_embed, gen,
+    groups = cp.predict_codes(cp_params, state.hidden, c0_embed,
+                              seeds[:, smp.SITE_CP_GROUP1:],
                               cfg.code_predictor, scfg)           # (B, 15)
 
     # 3. feedback embedding
@@ -142,13 +153,13 @@ def _loop_body(state: GenState, talker_params: dict, cp_params: dict,
         codes=state.codes,
         n_text=state.n_text,
         budget=state.budget,
+        key=state.key,
     )
 
 
 def run_steps(talker_params: dict, cp_params: dict, state: GenState,
-              cfg: TTSConfig, max_steps: int,
-              gen: torch.Generator) -> GenState:
-    """Advance the loop by up to ``max_steps`` tokens; stops once every row
+              cfg: TTSConfig, max_steps: int) -> GenState:
+    """Advance the loop by ``max_steps`` tokens, or fewer once every row
     is done. ``done`` is read back only every DONE_CHECK_STRIDE steps, so
     up to that many steps past the end may run: they change nothing,
     because every row is frozen."""
@@ -156,21 +167,23 @@ def run_steps(talker_params: dict, cp_params: dict, state: GenState,
     tts_pad_embed = tk.embed_text(
         talker_params, torch.tensor([TTS_PAD_TOKEN_ID], device=dev))[0]
     tcfg = cfg.talker
-    rope_table = tfm.rope_cos_sin(torch.arange(state.kv.shape[3], device=dev),
-                                  tcfg.head_dim, tcfg.rope_theta)
+    rope_table = None
+    if not isinstance(state.kv, tfm.PagedKV):
+        rope_table = tfm.rope_cos_sin(
+            torch.arange(state.kv.shape[3], device=dev), tcfg.head_dim,
+            tcfg.rope_theta)
     for i in range(int(max_steps)):
         if i % DONE_CHECK_STRIDE == 0 and bool(state.done.all()):
             break
         state = _loop_body(state, talker_params, cp_params, tts_pad_embed,
-                           cfg, gen, rope_table)
+                           cfg, rope_table)
     return state
 
 
 def generate(talker_params: dict, cp_params: dict, prefix: torch.Tensor,
              prefix_len: torch.Tensor, n_text: torch.Tensor,
-             gen: torch.Generator, cfg: TTSConfig):
+             key: torch.Tensor, cfg: TTSConfig):
     """Full decode: returns (codes (B, T_max, 16), n_codes (B,))."""
-    state = init_state(talker_params, prefix, prefix_len, n_text, cfg)
-    state = run_steps(talker_params, cp_params, state, cfg, cfg.max_tokens,
-                      gen)
+    state = init_state(talker_params, prefix, prefix_len, n_text, key, cfg)
+    state = run_steps(talker_params, cp_params, state, cfg, cfg.max_tokens)
     return state.codes, state.n_codes

@@ -17,7 +17,9 @@ from qwen3_tts_tpu_torch.models import transformer as tfm
 from qwen3_tts_tpu_torch.models.module import WeightTree
 from qwen3_tts_tpu_torch.ops import quant
 from qwen3_tts_tpu_torch.ops import sampling as smp
-from qwen3_tts_tpu_torch.ops.kernels.cp_decode import MAX_B, cp_decode_steps
+from qwen3_tts_tpu_torch.ops.kernels.cp_decode import (MAX_B,
+                                                       cp_decode_steps,
+                                                       sample_tokens)
 
 
 class CodePredictor(WeightTree):
@@ -45,13 +47,18 @@ def _fused_kernel_ok(params: dict, B: int) -> bool:
 
 
 def predict_codes(params: dict, hidden: torch.Tensor,
-                  code0_embed: torch.Tensor, gen: torch.Generator,
+                  code0_embed: torch.Tensor, seeds: torch.Tensor,
                   cfg: CodePredictorConfig,
                   scfg: SamplingConfig) -> torch.Tensor:
     """Groups 1..15 for each row: hidden (B, H) is the talker hidden after
     its final norm, code0_embed (B, H) the talker's codec_embedding of
-    code_0. Returns (B, 15) int32. Draws (group 1, and K2's per-row
-    seeds) come from ``gen``."""
+    code_0. Returns (B, 15) int32. seeds (B, 2): each row's seeds of its
+    token's CP draws (columns SITE_CP_GROUP1 and SITE_CP_STEPS of
+    ops/sampling.token_seeds). Group 1 draws with the first; groups
+    2..15 with the second, which K2, or past K2's batch limit the same
+    sampler per step, hashes with the step index. So a row's codes do
+    not depend on the rest of the batch, and the two paths draw the same
+    noise."""
     geo = tfm.geometry_of(cfg)
     B = hidden.shape[0]
     S = cfg.max_seq_len
@@ -68,18 +75,19 @@ def predict_codes(params: dict, hidden: torch.Tensor,
     h_last = tfm.rms_norm(h, params["final_norm"], cfg.rms_norm_eps)[:, -1]
 
     logits0 = quant.matmul(h_last, params["lm_heads"][0])
-    tok0 = smp.topk_temperature_sample(logits0, gen, scfg.cp_top_k,
-                                       scfg.cp_temperature).to(torch.int32)
+    tok0 = smp.topk_temperature_sample(
+        logits0, seeds[:, 0], scfg.cp_top_k,
+        scfg.cp_temperature).to(torch.int32)
+    steps_seed = smp.as_int32(seeds[:, 1])
+    greedy = scfg.cp_temperature <= 0.0
 
     if _fused_kernel_ok(params, B):
         cos, sin = tfm.rope_cos_sin(torch.arange(S, device=dev),
                                     cfg.head_dim, cfg.rope_theta)
-        seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (B,), generator=gen,
-                              device=dev, dtype=torch.int32)
         toks14 = cp_decode_steps(
-            params, tok0, kv, cos, sin, seeds, eps=cfg.rms_norm_eps,
+            params, tok0, kv, cos, sin, steps_seed, eps=cfg.rms_norm_eps,
             top_k=scfg.cp_top_k, temperature=float(scfg.cp_temperature),
-            greedy=scfg.cp_temperature <= 0.0)             # (14, B)
+            greedy=greedy)                                  # (14, B)
         return torch.cat([tok0[:, None], toks14.T], dim=1)
 
     toks = [tok0]
@@ -90,7 +98,9 @@ def predict_codes(params: dict, hidden: torch.Tensor,
         hh, kv = tfm.decode_step(params["layers"], emb, pos, kv, geo)
         hh = tfm.rms_norm(hh, params["final_norm"], cfg.rms_norm_eps)
         logits = quant.matmul(hh, params["lm_heads"][step])
-        tok = smp.topk_temperature_sample(logits, gen, scfg.cp_top_k,
-                                          scfg.cp_temperature).to(torch.int32)
+        tok = sample_tokens(logits, steps_seed[:, None], step - 1,
+                            top_k=scfg.cp_top_k,
+                            temperature=float(scfg.cp_temperature),
+                            greedy=greedy)[:, 0]
         toks.append(tok)
     return torch.stack(toks, dim=1)

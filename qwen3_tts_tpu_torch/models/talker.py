@@ -26,7 +26,7 @@ from qwen3_tts_tpu_torch.models import transformer as tfm
 from qwen3_tts_tpu_torch.models.module import WeightTree
 from qwen3_tts_tpu_torch.ops import quant
 from qwen3_tts_tpu_torch.ops.kernels.talker_step import (
-    talker_decode_step_fused)
+    MAX_B, talker_decode_step_fused)
 
 # prefix positions besides the N text tokens:
 # 3 role + 3 think + 1 transition + 1 tts_eos + 1 final codec_bos
@@ -117,24 +117,33 @@ def prefill(params: dict, prefix: torch.Tensor, prefix_len: torch.Tensor,
     return last, kv
 
 
-def _fused_step_ok(params: dict) -> bool:
+def _fused_step_ok(params: dict, B: int) -> bool:
     """The fused decode step (K3) applies to the fused-int8 layer layout
-    of ops/quant.quantize_talker. It is taken whenever that layout is
-    present: on the card the kernel runs (and raises for what it cannot
-    take, such as B > 8), on the CPU its plain version."""
+    of ops/quant.quantize_talker at 1 <= B <= talker_step.MAX_B; on the
+    card the kernel runs, on the CPU its plain version. Past MAX_B rows the
+    per-layer path runs over the same int8 stack, its products on K1 (the
+    JAX package's decode_step_unrolled)."""
     layers = params.get("layers", {})
-    return (isinstance(layers.get("qkv_proj"), quant.QTensor)
+    return (B <= MAX_B
+            and isinstance(layers.get("qkv_proj"), quant.QTensor)
             and isinstance(layers.get("gateup_proj"), quant.QTensor))
 
 
 def decode_step(params: dict, feedback: torch.Tensor, pos: torch.Tensor,
-                kv_cache: torch.Tensor, cfg: TalkerConfig,
+                kv_cache, cfg: TalkerConfig,
                 rope_table: Optional[Tuple[torch.Tensor, torch.Tensor]] = None):
     """One talker decode step on a feedback embedding (B, H). Returns the
-    final-norm hidden (B, H) and the cache (updated in place).
-    ``rope_table``: precomputed (S, Dh) cos/sin tables for K3, which loop
-    callers pass so they are not rebuilt every step."""
-    if _fused_step_ok(params):
+    final-norm hidden (B, H) and the cache (updated in place): a
+    ``tfm.PagedKV`` goes to the paged step (attention on K4), a dense
+    cache to K3 where it applies, else to the per-layer step (attention
+    on K5 under ``attention_impl="pallas"``). ``rope_table``: precomputed
+    (S, Dh) cos/sin tables for K3, which loop callers pass so they are
+    not rebuilt every step."""
+    geo = tfm.geometry_of(cfg)
+    if isinstance(kv_cache, tfm.PagedKV):
+        h, kv = tfm.paged_decode_step(params["layers"], feedback, pos,
+                                      kv_cache, geo)
+    elif _fused_step_ok(params, feedback.shape[0]):
         if rope_table is None:
             rope_table = tfm.rope_cos_sin(
                 torch.arange(kv_cache.shape[3], device=kv_cache.device),
@@ -144,5 +153,5 @@ def decode_step(params: dict, feedback: torch.Tensor, pos: torch.Tensor,
             rope_table[1], eps=cfg.rms_norm_eps)
     else:
         h, kv = tfm.decode_step(params["layers"], feedback, pos, kv_cache,
-                                tfm.geometry_of(cfg))
+                                geo)
     return tfm.rms_norm(h, params["final_norm"], cfg.rms_norm_eps), kv

@@ -1,12 +1,14 @@
-"""Qwen3 transformer blocks shared by the talker and the code predictor,
-dense KV path. Twin of qwen3_tts_tpu/models/transformer.py.
+"""Qwen3 transformer blocks shared by the talker and the code predictor.
+Twin of qwen3_tts_tpu/models/transformer.py.
 
 Weights are stacked along a leading layer axis and stored (in, out), so
 the hot path is ``x @ W``; int8 weights are ops/quant.QTensor and their
-products go to K1. The KV cache is dense, (L, 2, B, S, Hkv, Dh), the JAX
-layout. Unlike JAX, the prefill and decode functions write the new K/V
-rows into the cache they are given IN PLACE (and return it), which saves
-a copy of the cache per step.
+products go to K1. Two KV layouts, the JAX ones: the dense cache (L, 2,
+B, S, Hkv, Dh), whose decode attention is plain torch ops or K5
+(``attention_impl="pallas"``), and the block-paged ``PagedKV``, whose
+decode attention is K4. Unlike JAX, the prefill and decode functions
+write the new K/V rows into the cache or pool they are given IN PLACE
+(and return it), which saves a copy of the cache per step.
 """
 
 from __future__ import annotations
@@ -18,6 +20,9 @@ from typing import Optional, Tuple
 import torch
 
 from qwen3_tts_tpu_torch.ops import quant
+from qwen3_tts_tpu_torch.ops.kernels.decode_attention import decode_attention
+from qwen3_tts_tpu_torch.ops.kernels.paged_attention import (
+    paged_decode_attention)
 
 NEG_MASK = -1e30
 
@@ -88,6 +93,7 @@ class TransformerGeometry:
     head_dim: int
     rms_norm_eps: float
     rope_theta: float
+    attn_impl: str = "xla"  # "xla" | "pallas" (K5 decode attention)
 
     @property
     def q_groups(self) -> int:
@@ -100,7 +106,8 @@ def geometry_of(cfg) -> TransformerGeometry:
         num_layers=cfg.num_layers, hidden_size=cfg.hidden_size,
         intermediate_size=cfg.intermediate_size, num_heads=cfg.num_heads,
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-        rms_norm_eps=cfg.rms_norm_eps, rope_theta=cfg.rope_theta)
+        rms_norm_eps=cfg.rms_norm_eps, rope_theta=cfg.rope_theta,
+        attn_impl=cfg.attention_impl)
 
 
 def init_kv_cache(geo: TransformerGeometry, batch: int, max_seq: int,
@@ -216,8 +223,9 @@ def causal_mask(batch: int, seq_len: int, lengths: torch.Tensor):
 def decode_step(params: dict, x: torch.Tensor, pos: torch.Tensor,
                 kv_cache: torch.Tensor, geo: TransformerGeometry):
     """One token per row over all layers: x (B, H), pos (B,) write
-    positions. The new K/V rows go into kv_cache in place. Returns
-    (hidden (B, H) before the final norm, kv_cache)."""
+    positions. The new K/V rows go into kv_cache in place. Attention is
+    K5 when ``geo.attn_impl == "pallas"``, plain torch ops otherwise.
+    Returns (hidden (B, H) before the final norm, kv_cache)."""
     B = x.shape[0]
     S = kv_cache.shape[3]
     cos, sin = rope_cos_sin(pos[:, None], geo.head_dim, geo.rope_theta)
@@ -229,7 +237,93 @@ def decode_step(params: dict, x: torch.Tensor, pos: torch.Tensor,
         def attend(q, k, v, li=li):
             kv_cache[li, 0, b_idx, pos] = k[:, 0].to(kv_cache.dtype)
             kv_cache[li, 1, b_idx, pos] = v[:, 0].to(kv_cache.dtype)
+            if geo.attn_impl == "pallas":
+                return decode_attention(q[:, 0], kv_cache[li, 0],
+                                        kv_cache[li, 1], pos)[:, None]
             return gqa_attention(q, kv_cache[li, 0], kv_cache[li, 1],
                                  mask, geo)
         h = _block(layer, h, geo, cos, sin, attend)
     return h[:, 0], kv_cache
+
+
+# ---------------------------------------------------------------------------
+# Block-paged KV cache
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PagedKV:
+    """Block-paged KV: rows own pages of a shared pool via a page table,
+    so memory tracks use instead of B x worst case, and a row's length is
+    bounded by its allocated pages (grown by the batcher between decode
+    chunks), not by a dense allocation.
+
+    pool:     (L, 2, P, page_size, Hkv, Dh)
+    table:    (B, MAXP) int32, page ids in logical order; entries past
+              the allocation are 0, a reserved page only ever read masked
+    capacity: (B,) int32 allocated rows (pages x page_size)
+    """
+
+    pool: torch.Tensor
+    table: torch.Tensor
+    capacity: torch.Tensor
+
+    @property
+    def page_size(self) -> int:
+        return self.pool.shape[3]
+
+
+def init_paged_kv(geo: TransformerGeometry, batch: int, n_pages: int,
+                  page_size: int, max_pages_per_slot: int,
+                  dtype=torch.float32, device=None) -> PagedKV:
+    i32 = dict(dtype=torch.int32, device=device)
+    return PagedKV(
+        pool=torch.zeros((geo.num_layers, 2, n_pages, page_size,
+                          geo.num_kv_heads, geo.head_dim), dtype=dtype,
+                         device=device),
+        table=torch.zeros((batch, max_pages_per_slot), **i32),
+        capacity=torch.zeros((batch,), **i32))
+
+
+def kv_capacity(kv):
+    """Rows a row may occupy: (B,) per row for paged, the dense S
+    otherwise."""
+    if isinstance(kv, PagedKV):
+        return kv.capacity
+    return kv.shape[3]
+
+
+def paged_scatter_rows(paged: PagedKV, slot: int, rows_kv: torch.Tensor,
+                       start: int = 0) -> PagedKV:
+    """Write rows_kv (L, 2, R, Hkv, Dh) into logical rows [start,
+    start + R) of ``slot`` (in place): splices a dense batch-1 prefill
+    into the slot's pages."""
+    R = rows_kv.shape[2]
+    psz = paged.page_size
+    logical = start + torch.arange(R, device=paged.table.device)
+    pages = paged.table[slot, logical // psz].long()
+    paged.pool[:, :, pages, logical % psz] = rows_kv.to(paged.pool.dtype)
+    return paged
+
+
+def paged_decode_step(params: dict, x: torch.Tensor, pos: torch.Tensor,
+                      paged: PagedKV, geo: TransformerGeometry):
+    """decode_step against the paged pool: row b's new K/V land at page
+    table[b, pos // psz], row pos % psz (in place), then attention over
+    the row's pages runs on K4. Returns (hidden (B, H) before the final
+    norm, paged)."""
+    B = x.shape[0]
+    psz = paged.page_size
+    cos, sin = rope_cos_sin(pos[:, None], geo.head_dim, geo.rope_theta)
+    b_idx = torch.arange(B, device=x.device)
+    page_ids = paged.table[b_idx, pos // psz].long()
+    rows = pos % psz
+    h = x[:, None, :]
+    for li, layer in enumerate(_layers(params)):
+        def attend(q, k, v, li=li):
+            pool_l = paged.pool[li]
+            pool_l[0, page_ids, rows] = k[:, 0].to(pool_l.dtype)
+            pool_l[1, page_ids, rows] = v[:, 0].to(pool_l.dtype)
+            return paged_decode_attention(q[:, 0], pool_l, paged.table,
+                                          pos)[:, None]
+        h = _block(layer, h, geo, cos, sin, attend)
+    return h[:, 0], paged

@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-Every source under ``qwen3_tts_tpu_torch/csrc/`` is compiled by ``nvcc``
-into ONE shared library with a plain C interface, at first use, into
+Every source under ``qwen3_tts_tpu_torch/csrc/`` is compiled by its own
+``nvcc`` (all started together), and the objects are linked into ONE
+shared library with a plain C interface, at first use, into
 ``build/qwen3_tts_tpu_torch/`` at the repository root. The file name
 carries a hash of the sources and the flags, so an edited source builds
 anew. The library is loaded with ``ctypes``: every entry point takes
@@ -27,7 +28,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "qwen3_tts_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
 _lib = None
@@ -54,6 +55,44 @@ def library_path() -> Path:
     return BUILD_DIR / f"libq3tts_{h.hexdigest()[:16]}.so"
 
 
+def _run(procs):
+    """Wait for every (cmd, Popen); raise with the first failure's
+    output."""
+    failed = None
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = (cmd, proc.returncode, out, err)
+    if failed:
+        cmd, rc, out, err = failed
+        raise RuntimeError(f"nvcc failed ({rc}):\n{' '.join(cmd)}\n{out}\n"
+                           f"{err}")
+
+
+def _compile(path: Path) -> None:
+    """One nvcc per source, all at once, then one link into ``path``."""
+    nvcc = _nvcc()
+    work = BUILD_DIR / f"obj.{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    try:
+        procs, objs = [], []
+        for src in sorted(CSRC.glob("*.cu")):
+            obj = work / f"{src.stem}.o"
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                text=True)))
+            objs.append(str(obj))
+        _run(procs)
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs]
+        _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                     stderr=subprocess.PIPE, text=True))])
+        os.replace(tmp, path)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def load() -> ctypes.CDLL:
     """Build (if needed) and load the kernel library; raises on failure."""
     global _lib, build_seconds
@@ -62,17 +101,8 @@ def load() -> ctypes.CDLL:
             return _lib
         path = library_path()
         if not path.exists():
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = path.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
             t0 = time.perf_counter()
-            res = subprocess.run(cmd, capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}\n"
-                    f"{res.stdout}\n{res.stderr}")
-            os.replace(tmp, path)
+            _compile(path)
             build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(path))
         lib.q3_error_string.argtypes = [ctypes.c_int]

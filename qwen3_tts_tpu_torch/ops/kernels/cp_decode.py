@@ -6,8 +6,9 @@ topk_keep_mask and sample_tokens).
 Applies to int8 code-predictor params (ops/quant.quantize_code_predictor:
 separate q/k/v/o/gate/up/down QTensors, QTensor lm_heads), 1 <= B <= 8.
 The plain version below holds the kernel's math op for op; its sampling
-(topk_keep_mask, sample_tokens) reproduces the JAX kernel's integer
-arithmetic bit for bit, emulating uint32 with int64 & 0xFFFFFFFF."""
+(topk_keep_mask, sample_tokens, with ops/sampling.gumbel_noise)
+reproduces the JAX kernel's integer arithmetic bit for bit, emulating
+uint32 with int64 & 0xFFFFFFFF."""
 
 from __future__ import annotations
 
@@ -20,25 +21,18 @@ from qwen3_tts_tpu_torch.ops.kernels import _build
 from qwen3_tts_tpu_torch.ops.kernels.common import (
     NEG, bf16, lane_dot, pv, qmm, rms_heads, rms_rows, rope, sigmoid,
     softmax_sum)
+from qwen3_tts_tpu_torch.ops.sampling import M32, gumbel_noise
 
 MAX_B = 8
 MAX_V = 4096          # SAMPLE_THREADS * SAMPLE_PER in csrc/cp_decode.cu
-_M32 = 0xFFFFFFFF
-
-
-def _mul32(a: torch.Tensor, c: int) -> torch.Tensor:
-    """(a * c) mod 2**32 for int64 a in [0, 2**32), without int64
-    overflow: split c into 16-bit halves."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (a * lo + (((a * hi) & 0xFFFF) << 16)) & _M32
 
 
 def topk_keep_mask(logits: torch.Tensor, k: int) -> torch.Tensor:
     """Per-row mask logits >= (k-th largest value), ties kept, found by a
     32-step bitwise search on the order-preserving integer transform of
     the f32 bits. logits (N, V) f32 -> bool (N, V)."""
-    bits = logits.float().contiguous().view(torch.int32).long() & _M32
-    flip = torch.where((bits >> 31) > 0, torch.full_like(bits, _M32),
+    bits = logits.float().contiguous().view(torch.int32).long() & M32
+    flip = torch.where((bits >> 31) > 0, torch.full_like(bits, M32),
                        torch.full_like(bits, 0x80000000))
     key = bits ^ flip
     thr = torch.zeros((logits.shape[0], 1), dtype=torch.int64,
@@ -65,17 +59,7 @@ def sample_tokens(logits: torch.Tensor, seed_col: torch.Tensor, step: int,
     else:
         keep = topk_keep_mask(logits, top_k)
         masked = torch.where(keep, logits, torch.full_like(logits, NEG))
-        seed = seed_col.long() & _M32
-        bits = (_mul32(seed, 2654435761) + ((int(step) * 40503) & _M32)
-                + _mul32(iota, 2246822519)[None, :]) & _M32
-        bits = bits ^ (bits >> 16)
-        bits = _mul32(bits, 2246822519)
-        bits = bits ^ (bits >> 13)
-        bits = _mul32(bits, 3266489917)
-        bits = bits ^ (bits >> 16)
-        u = (bits >> 9).float() * (1.0 / (1 << 23))
-        u = u * (1.0 - 1e-6) + 1e-7
-        gumbel = -torch.log(-torch.log(u))
+        gumbel = gumbel_noise(seed_col, step, V)
         z = torch.where(keep, masked * (1.0 / max(temperature, 1e-6))
                         + gumbel, torch.full_like(logits, NEG))
     zm = z.amax(-1, keepdim=True)

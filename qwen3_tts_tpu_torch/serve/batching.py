@@ -1,0 +1,693 @@
+"""Continuous batching: many requests through one batched decode loop.
+Twin of qwen3_tts_tpu/serve/batching.py at pipeline_depth=1.
+
+- One batched ``GenState`` with B slots; the decode loop
+  (engine/generate.run_steps) advances every slot in lockstep,
+  ``decode_chunk`` tokens per scheduler step.
+- Between chunks the scheduler admits queued requests into free slots (a
+  batch-1 prefill, cached in a small prefix LRU, spliced into the slot in
+  place) and harvests finished slots (EOS, the request's token budget or
+  a full KV allocation): each is vocoded and its Future resolved.
+- A request's codes depend only on its seed: its row key rides into the
+  slot, and every draw hashes (key, token counter, site), so a request in
+  a busy batch decodes exactly what it decodes alone.
+- ``paged=True`` keeps the talker KV in a block-paged pool
+  (models/transformer.PagedKV): slots own ``page_size``-row pages through
+  a page table that the scheduler grows between chunks and recycles at
+  harvest; the decode step's attention is then K4. Page 0 is reserved:
+  a released slot's zeroed table points there.
+- The talker is bf16 (the ``dtype``) by default, the code predictor int8
+  (``quantize_cp``), so at batch <= 8 the 14 CP steps run on K2; with
+  ``TalkerConfig(attention_impl="pallas")`` a dense step's attention runs
+  on K5.
+
+Not ported yet, and refused with the ROADMAP item named: streaming
+(``on_chunk``), voice cloning (``ref_codes``), ``pipeline_depth=2`` and a
+device ``mesh``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import sys
+import threading
+import time
+import traceback
+from collections import OrderedDict
+from concurrent.futures import Future
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from qwen3_tts_tpu_torch.config import TTSConfig
+from qwen3_tts_tpu_torch.engine import generate as gen
+from qwen3_tts_tpu_torch.engine.engine import check_one_window, vocode
+from qwen3_tts_tpu_torch.models import talker as tk
+from qwen3_tts_tpu_torch.models import transformer as tfm
+from qwen3_tts_tpu_torch.models import vocoder as voc
+from qwen3_tts_tpu_torch.models.code_predictor import CodePredictor
+from qwen3_tts_tpu_torch.ops import quant
+from qwen3_tts_tpu_torch.ops import sampling as smp
+
+_ROADMAP = "is not ported yet (ROADMAP queue 1: continuous batcher, {})"
+
+
+class OverloadedError(RuntimeError):
+    """submit() refused a request because the waiting pool is at
+    ``max_queue``. Raised synchronously, so callers can shed load."""
+
+
+class _Request:
+    def __init__(self, text_ids: np.ndarray, n_text: int, seed: int,
+                 max_tokens: Optional[int] = None, priority: int = 0,
+                 order: int = 0):
+        self.text_ids = text_ids
+        self.n_text = int(n_text)
+        self.seed = seed
+        self.max_tokens = max_tokens
+        # admission order among waiting requests: highest priority first,
+        # FIFO (submit order) within a priority
+        self.priority = priority
+        self.order = order
+        # set by the submitter to withdraw the request: skipped while
+        # queued, freed at the next chunk boundary once admitted
+        self.cancelled = False
+        self.future: Future = Future()
+        # latency: queue wait t_admit - t_submit; first token t_first
+        # (observed at chunk granularity); audio t_done
+        self.t_submit = time.perf_counter()
+        self.t_admit: Optional[float] = None
+        self.t_first: Optional[float] = None
+        self.t_done: Optional[float] = None
+
+
+def _empty_state(cfg: TTSConfig, batch: int, dtype, device,
+                 paged_kv: Optional[tfm.PagedKV] = None) -> gen.GenState:
+    geo = tfm.geometry_of(cfg.talker)
+    i32 = dict(dtype=torch.int32, device=device)
+    kv = paged_kv if paged_kv is not None else tfm.init_kv_cache(
+        geo, batch, cfg.talker.max_seq_len, dtype=dtype, device=device)
+    return gen.GenState(
+        kv=kv,
+        pos=torch.zeros((batch,), **i32),
+        hidden=torch.zeros((batch, cfg.talker.hidden_size), dtype=dtype,
+                           device=device),
+        ring=torch.full((batch, cfg.sampling.repetition_window), -1, **i32),
+        n_codes=torch.zeros((batch,), **i32),
+        done=torch.ones((batch,), dtype=torch.bool, device=device),
+        codes=torch.zeros((batch, cfg.max_tokens, 16), **i32),
+        n_text=torch.zeros((batch,), **i32),
+        budget=torch.full((batch,), cfg.max_tokens, **i32),
+        key=torch.zeros((batch,), dtype=torch.int64, device=device),
+    )
+
+
+def _insert_rows(state: gen.GenState, slot: int, sub: gen.GenState) -> None:
+    """Write a batch-1 state's per-row fields into ``slot`` (in place);
+    the request's key comes along, so its draws are its own."""
+    state.pos[slot] = sub.pos[0]
+    state.hidden[slot] = sub.hidden[0].to(state.hidden.dtype)
+    state.ring[slot] = sub.ring[0]
+    state.n_codes[slot] = 0
+    state.done[slot] = False
+    state.codes[slot] = 0
+    state.n_text[slot] = sub.n_text[0]
+    state.key[slot] = sub.key[0]
+    state.budget[slot] = sub.budget[0]
+
+
+def _insert_slot(state: gen.GenState, slot: int, sub: gen.GenState) -> None:
+    """Splice a batch-1 post-prefill state into ``slot`` of the dense
+    batch (in place)."""
+    state.kv[:, :, slot] = sub.kv[:, :, 0].to(state.kv.dtype)
+    _insert_rows(state, slot, sub)
+
+
+def _insert_slot_paged(state: gen.GenState, slot: int, sub: gen.GenState,
+                       table_row: torch.Tensor, capacity: int, *,
+                       n_rows: int) -> None:
+    """Paged _insert_slot: install the slot's page-table row and
+    capacity, then write the first ``n_rows`` dense prefill rows into its
+    pages (in place)."""
+    state.kv.table[slot] = table_row
+    state.kv.capacity[slot] = capacity
+    tfm.paged_scatter_rows(state.kv, slot, sub.kv[:, :, 0, :n_rows])
+    _insert_rows(state, slot, sub)
+
+
+class ContinuousBatcher:
+    """Fixed-slot continuous-batching scheduler over the decode loop, on
+    one device (``device``, the card unless the caller passes "cpu").
+
+    ``params``: the port's weights (io/weights.py), talker, code
+    predictor and vocoder. ``dtype``: the talker's working type (weights,
+    KV, hidden). ``quantize_talker`` keeps the talker int8 (fused layout;
+    K3 up to 8 rows, the per-layer step on K1 past that); otherwise an
+    int8 talker is dequantized to ``dtype``. ``quantize_cp`` (default on)
+    makes the code predictor int8. ``prefix_cache``: capacity of the
+    admission prefix LRU (0 disables). ``max_queue``: bound on waiting
+    requests, past which submit() raises OverloadedError."""
+
+    def __init__(self, cfg: TTSConfig, params: Dict, batch_size: int = 4,
+                 decode_chunk: int = 16, dtype=torch.bfloat16, mesh=None,
+                 quantize_talker: bool = False, quantize_cp: bool = True,
+                 paged: bool = False, page_size: int = 64,
+                 pool_pages: Optional[int] = None,
+                 max_pages_per_slot: Optional[int] = None,
+                 pipeline_depth: int = 1, prefix_cache: int = 8,
+                 max_queue: Optional[int] = None, device="cuda"):
+        if pipeline_depth not in (1, 2):
+            raise ValueError(f"pipeline_depth must be 1 or 2, "
+                             f"got {pipeline_depth}")
+        if pipeline_depth == 2:
+            raise NotImplementedError(
+                "pipeline_depth=2 " + _ROADMAP.format("pipeline_depth=2"))
+        if mesh is not None:
+            raise NotImplementedError(
+                "a device mesh " + _ROADMAP.format("mesh and multi-process"))
+        self.cfg = cfg
+        self.device = torch.device(device)
+        self.batch_size = batch_size
+        self.decode_chunk = decode_chunk
+        self.dtype = dtype
+        self.pipeline_depth = pipeline_depth
+
+        talker = _cast(params["talker"], dtype)
+        if quantize_talker:
+            if "qkv_proj" not in talker["layers"]:
+                talker = quant.quantize_talker(talker)
+        elif any(isinstance(v, quant.QTensor)
+                 for v in talker["layers"].values()):
+            talker = _dequantize(talker, dtype)
+        cpp = params["code_predictor"]
+        if quantize_cp and not isinstance(cpp["lm_heads"], quant.QTensor):
+            cpp = quant.quantize_code_predictor(cpp)
+        self._tp = tk.Talker(cfg.talker, talker).to(self.device).weights()
+        self._cpp = CodePredictor(cfg.code_predictor,
+                                  cpp).to(self.device).weights()
+        self._vp = voc.Vocoder(cfg.vocoder,
+                               params["vocoder"]).to(self.device).weights()
+
+        self.paged = paged
+        paged_kv = None
+        if paged:
+            geo = tfm.geometry_of(cfg.talker)
+            self.page_size = page_size
+            # default pool: every slot can reach max_tokens after a
+            # max-size prefix, plus the reserved page 0
+            worst = cfg.max_tokens + 256 + tk.PREFIX_EXTRA + page_size
+            per_slot = -(-worst // page_size)
+            self.max_pages_per_slot = max_pages_per_slot or per_slot
+            self.pool_pages = pool_pages or batch_size * per_slot + 1
+            paged_kv = tfm.init_paged_kv(
+                geo, batch_size, self.pool_pages, page_size,
+                self.max_pages_per_slot, dtype=dtype, device=self.device)
+            self._free: List[int] = list(range(1, self.pool_pages))
+            self._slot_pages: List[List[int]] = [[] for _ in
+                                                 range(batch_size)]
+        with torch.inference_mode():
+            self._state = _empty_state(cfg, batch_size, dtype, self.device,
+                                       paged_kv)
+        self._slot_req: List[Optional[_Request]] = [None] * batch_size
+        # (done, pos) host mirrors left by the harvest's status read: the
+        # next step's admission uses them instead of a second device read
+        self._status_mirror: Optional[tuple] = None
+        self._queue: "queue.Queue[_Request]" = queue.Queue()
+        self._waiting: List[_Request] = []   # scheduler-thread-only
+        self._backlog: List[_Request] = []   # paged: waiting for pages
+        self.max_queue = max_queue
+        self._order = 0
+        self._stop = threading.Event()
+        self._draining = False
+        self._closed = False
+        self._submit_lock = threading.Lock()
+        self._thread: Optional[threading.Thread] = None
+        self.prefix_cache_size = prefix_cache
+        self._prefix_lru: "OrderedDict[tuple, tuple]" = OrderedDict()
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+
+    # -- public API ---------------------------------------------------------
+
+    def submit(self, text_ids: np.ndarray, n_text: int, seed: int = 0,
+               max_tokens: Optional[int] = None, on_chunk=None,
+               ref_codes=None, n_target: Optional[int] = None,
+               priority: int = 0) -> Future:
+        """Queue a request; the Future resolves to (codes (T, 16) int32,
+        audio int16 (T * 1920,)). ``max_tokens`` caps this request; a
+        higher ``priority`` admits first (FIFO within a priority). Raises
+        OverloadedError when ``max_queue`` waiting requests are queued."""
+        if on_chunk is not None:
+            raise NotImplementedError(
+                "streaming (on_chunk) " + _ROADMAP.format(
+                    "streaming on_chunk with vocoder_stream"))
+        if ref_codes is not None or n_target is not None:
+            raise NotImplementedError(
+                "voice cloning (ref_codes) " + _ROADMAP.format(
+                    "cloned admission"))
+        with self._submit_lock:
+            if self.max_queue is not None:
+                depth = (self._queue.qsize() + len(self._waiting)
+                         + len(self._backlog))
+                if depth >= self.max_queue:
+                    raise OverloadedError(
+                        f"server overloaded: {depth} requests waiting "
+                        f"(max_queue={self.max_queue}); retry later")
+            self._order += 1
+            req = _Request(np.asarray(text_ids, np.int32), n_text, seed,
+                           max_tokens, int(priority), self._order)
+            req.future.request = req   # exposes the timings
+            if self._closed:
+                req.future.set_exception(RuntimeError("batcher stopped"))
+                return req.future
+            self._queue.put(req)
+        return req.future
+
+    def occupancy(self) -> dict:
+        """Scheduler snapshot (read without pausing the scheduler)."""
+        snap = {
+            "batch_size": self.batch_size,
+            "active_slots": sum(r is not None for r in self._slot_req),
+            "queued": (self._queue.qsize() + len(self._waiting)
+                       + len(self._backlog)),
+            "paged": self.paged,
+            "prefix_cache": {"entries": len(self._prefix_lru),
+                             "capacity": self.prefix_cache_size,
+                             "hits": self.prefix_hits,
+                             "misses": self.prefix_misses},
+        }
+        if self.paged:
+            snap["free_pages"] = len(self._free)
+        return snap
+
+    @property
+    def _free_pages(self) -> List[int]:
+        return list(self._free) if self.paged else []
+
+    def start(self) -> None:
+        if self._thread is not None and self._thread.is_alive():
+            if self._closed:
+                raise RuntimeError(
+                    "batcher scheduler thread from a previous stop() is "
+                    "still alive; cannot restart")
+            return
+        self._closed = False
+        self._stop.clear()
+        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread.start()
+
+    @torch.inference_mode()
+    def stop(self, drain: bool = True, timeout: float = 60.0) -> None:
+        """Stop the scheduler. ``drain=True`` admits nothing new but lets
+        in-flight slots finish (bounded by ``timeout``); whatever is still
+        unfinished then, queued or mid-decode, fails with RuntimeError.
+        A cleanly stopped batcher can start() again."""
+        if drain and self._thread is not None and self._thread.is_alive():
+            self._draining = True
+            deadline = time.monotonic() + timeout
+            while (any(r is not None for r in self._slot_req)
+                   and time.monotonic() < deadline):
+                time.sleep(0.01)
+        self._stop.set()
+        joined = True
+        if self._thread is not None:
+            self._thread.join(timeout=max(timeout, 10.0))
+            joined = not self._thread.is_alive()
+        with self._submit_lock:
+            self._closed = True
+            leftovers = self._drain_queue()
+        leftovers += self._waiting + self._backlog
+        self._waiting, self._backlog = [], []
+        if not joined:
+            # the thread still owns the slots and the device state
+            _fail(leftovers, RuntimeError("batcher stopped"))
+            return
+        inflight = [s for s in range(self.batch_size)
+                    if self._slot_req[s] is not None]
+        _fail(leftovers + [self._slot_req[s] for s in inflight],
+              RuntimeError("batcher stopped"))
+        self._status_mirror = None
+        self._free_slots_on_device(inflight)
+        self._draining = False
+        self._stop.clear()
+        self._thread = None
+        with self._submit_lock:
+            self._closed = False
+
+    # -- scheduler ----------------------------------------------------------
+
+    def _drain_queue(self) -> List[_Request]:
+        out = []
+        while True:
+            try:
+                out.append(self._queue.get_nowait())
+            except queue.Empty:
+                return out
+
+    def _fetch_status(self, state: gen.GenState) -> tuple:
+        """(done, n_codes, pos) as host arrays, in one device read."""
+        st = torch.stack([state.done.to(torch.int32), state.n_codes,
+                          state.pos]).cpu().numpy()
+        return st[0].astype(bool), st[1].copy(), st[2].copy()
+
+    def _prefix_result(self, ids: np.ndarray, n_text: int,
+                       window: int) -> tuple:
+        """(hidden, kv, plen) of a request's prefix: the dual-stream
+        prefix and a batch-1 talker prefill into a ``window``-row cache,
+        through the LRU. Seed and budget are not part of it."""
+        key = (ids.tobytes(), n_text, window)
+        if self.prefix_cache_size > 0:
+            hit = self._prefix_lru.get(key)
+            if hit is not None:
+                self._prefix_lru.move_to_end(key)
+                self.prefix_hits += 1
+                return hit
+        tp = self._tp
+        prefix, plen = tk.build_prefix(
+            tp, torch.from_numpy(ids).to(self.device), n_text)
+        pcfg = dataclasses.replace(self.cfg, talker=dataclasses.replace(
+            self.cfg.talker, max_seq_len=window))
+        hidden, kv = gen.prefill_state(
+            tp, prefix[None].to(tp["codec_embedding"].dtype), plen[None],
+            pcfg)
+        out = (hidden, kv, plen[None])
+        self.prefix_misses += 1
+        if self.prefix_cache_size > 0:
+            self._prefix_lru[key] = out
+            while len(self._prefix_lru) > self.prefix_cache_size:
+                self._prefix_lru.popitem(last=False)
+        return out
+
+    def _sub_state(self, req: _Request, window: int) -> gen.GenState:
+        """The request's batch-1 post-prefill state."""
+        hidden, kv, plen = self._prefix_result(req.text_ids, req.n_text,
+                                               window)
+        key = smp.batch_keys([req.seed], 1)
+        return gen.assemble_state(
+            hidden, kv, plen, torch.tensor([req.n_text]), key, self.cfg,
+            budget=self._req_budget(req))
+
+    def _req_budget(self, req: _Request) -> int:
+        if req.max_tokens is None:
+            return self.cfg.max_tokens
+        return min(int(req.max_tokens), self.cfg.max_tokens)
+
+    def _next_request(self) -> Optional[_Request]:
+        if self._draining:
+            return None
+        # a paged request waiting for pages keeps head-of-line
+        if self._backlog:
+            return self._backlog.pop(0)
+        self._waiting += self._drain_queue()
+        if not self._waiting:
+            return None
+        best = min(range(len(self._waiting)),
+                   key=lambda i: (-self._waiting[i].priority,
+                                  self._waiting[i].order))
+        return self._waiting.pop(best)
+
+    def _free_slots_on_device(self, slots: List[int]) -> None:
+        """Mark ``slots`` done on the device, zero their page tables and
+        only then return their pages: a frozen slot keeps rewriting K/V
+        at its last position, which must land in reserved page 0 and not
+        in a page handed to another slot."""
+        for s in slots:
+            self._state.done[s] = True
+            self._slot_req[s] = None
+            if self.paged:
+                self._release(s)
+
+    def _release(self, slot: int) -> None:
+        self._state.kv.table[slot] = 0
+        self._state.kv.capacity[slot] = 0
+        self._free.extend(self._slot_pages[slot])
+        self._slot_pages[slot] = []
+
+    def _evict_cancelled(self, done: np.ndarray) -> None:
+        """Free admitted slots whose request was withdrawn, and flip the
+        host mirror so this step's admission can reuse them."""
+        victims = [s for s in range(self.batch_size)
+                   if self._slot_req[s] is not None
+                   and self._slot_req[s].cancelled and not done[s]]
+        _fail([self._slot_req[s] for s in victims],
+              RuntimeError("request cancelled"))
+        self._free_slots_on_device(victims)
+        done[victims] = True
+
+    def _admit(self, done: np.ndarray, pos: np.ndarray) -> List[int]:
+        """Admit queued requests into free slots; updates the host
+        mirrors ``done``/``pos`` in place (both are known on the host), so
+        the page top-up needs no device read. Returns the slots."""
+        admitted: List[int] = []
+        free = [s for s in range(self.batch_size)
+                if done[s] and self._slot_req[s] is None]
+        for slot in free:
+            req = None
+            while True:
+                req = self._next_request()
+                if req is None:
+                    break
+                if req.cancelled:
+                    _fail([req], RuntimeError("request cancelled"))
+                    continue
+                # a malformed request fails its own Future; the slot
+                # moves on to the next request
+                try:
+                    if self.paged:
+                        if not self._admit_paged(slot, req):
+                            self._backlog.append(req)   # pool pressure
+                            req = None
+                            break
+                    else:
+                        S = self.cfg.talker.max_seq_len
+                        p_pad = len(req.text_ids) + tk.PREFIX_EXTRA
+                        if p_pad > S:
+                            raise ValueError(
+                                f"request prefix ({p_pad} rows incl. "
+                                f"{tk.PREFIX_EXTRA} special) exceeds the "
+                                f"dense KV allocation (max_seq_len={S}); "
+                                f"shorten the text or use the paged "
+                                f"batcher")
+                        _insert_slot(self._state, slot,
+                                     self._sub_state(req, S))
+                except Exception as e:
+                    _fail([req], e)
+                    continue
+                break
+            if req is None:
+                break
+            self._slot_req[slot] = req
+            req.t_admit = time.perf_counter()
+            done[slot] = False
+            pos[slot] = req.n_text + tk.PREFIX_EXTRA
+            admitted.append(slot)
+        return admitted
+
+    def _admit_paged(self, slot: int, req: _Request) -> bool:
+        """Allocate pages for the prefix plus one chunk of headroom,
+        prefill into a page-aligned dense window, splice it into the
+        slot. False when the pool cannot cover the prefix yet; raises
+        when it never can."""
+        psz = self.page_size
+        p_pad = len(req.text_ids) + tk.PREFIX_EXTRA
+        if p_pad > self.max_pages_per_slot * psz:
+            raise ValueError(
+                f"request prefix ({p_pad} rows incl. {tk.PREFIX_EXTRA} "
+                f"special) exceeds a slot's page capacity "
+                f"({self.max_pages_per_slot} pages x {psz}); shorten the "
+                f"text or raise max_pages_per_slot/page_size")
+        need = min(-(-(p_pad + self.decode_chunk + 2) // psz),
+                   self.max_pages_per_slot)
+        usable = self.pool_pages - 1
+        if need > usable:
+            raise ValueError(
+                f"request prefix needs {need} pages but the pool has only "
+                f"{usable} usable pages per dp group (pool_pages="
+                f"{self.pool_pages}, page_size={psz}); raise pool_pages "
+                f"or shorten the text")
+        if len(self._free) < need:
+            return False
+        s_pre = -(-p_pad // psz) * psz
+        sub = self._sub_state(req, s_pre)
+        pages = [self._free.pop() for _ in range(need)]
+        table_row = torch.zeros((self.max_pages_per_slot,),
+                                dtype=torch.int32)
+        table_row[:need] = torch.tensor(pages, dtype=torch.int32)
+        try:
+            _insert_slot_paged(self._state, slot, sub,
+                               table_row.to(self.device), need * psz,
+                               n_rows=s_pre)
+        except BaseException:
+            self._free.extend(pages)
+            raise
+        self._slot_pages[slot] = pages
+        return True
+
+    def _top_up_pages(self, pos: np.ndarray, done: np.ndarray) -> None:
+        """Grow page tables so that no active slot reaches its capacity
+        inside the coming chunk; pages are allocated between chunks,
+        never inside the loop. A slot at its page limit, or with the pool
+        empty, finishes at its capacity."""
+        psz = self.page_size
+        while True:
+            grows = []     # (slot, table index, page): one per slot
+            for slot in range(self.batch_size):
+                pages = self._slot_pages[slot]
+                if self._slot_req[slot] is None or done[slot]:
+                    continue
+                if (len(pages) * psz - int(pos[slot])
+                        >= self.pipeline_depth * self.decode_chunk + 2):
+                    continue
+                if len(pages) >= self.max_pages_per_slot or not self._free:
+                    continue
+                page = self._free.pop()
+                grows.append((slot, len(pages), page))
+                pages.append(page)
+            if not grows:
+                return
+            s, i, p = (torch.tensor(c, device=self.device)
+                       for c in zip(*grows))
+            kv = self._state.kv
+            kv.table[s, i] = p.to(torch.int32)
+            kv.capacity[s] += psz
+
+    def _harvest(self, state: gen.GenState) -> int:
+        """Read the chunk's status (one device read, kept as the next
+        step's mirrors) and resolve the finished slots."""
+        done, n_codes, pos = self._fetch_status(state)
+        self._status_mirror = (done.copy(), pos.copy())
+        now = time.perf_counter()
+        for s, r in enumerate(self._slot_req):
+            if r is not None and r.t_first is None and n_codes[s] > 0:
+                r.t_first = now
+        finished = [s for s in range(self.batch_size)
+                    if self._slot_req[s] is not None and done[s]]
+        if not finished:
+            return 0
+        # a copy: on the CPU .numpy() would share the buffer that the
+        # slot's next request overwrites
+        codes_all = state.codes.cpu().numpy().copy()
+        for slot in finished:
+            req = self._slot_req[slot]
+            codes = codes_all[slot, :int(n_codes[slot])]
+            try:
+                check_one_window(len(codes))
+                audio = voc.to_int16(vocode(self._vp, codes,
+                                            self.cfg.vocoder, self.device))
+                req.t_done = time.perf_counter()
+                req.future.set_result((codes, audio))
+            except Exception as e:
+                req.t_done = time.perf_counter()
+                req.future.set_exception(e)
+            self._slot_req[slot] = None
+            if self.paged:
+                self._release(slot)
+        return len(finished)
+
+    @torch.inference_mode()
+    def step(self) -> bool:
+        """One scheduler iteration: evict cancelled slots, admit, grow
+        pages, run one chunk, harvest. One blocking device read per chunk
+        (the harvest's status, whose (done, pos) the next admission
+        reuses). Returns True if a chunk ran."""
+        if self._status_mirror is not None:
+            done, pos = self._status_mirror
+            self._status_mirror = None
+        else:
+            done, _, pos = self._fetch_status(self._state)
+        self._evict_cancelled(done)
+        self._admit(done, pos)
+        if not any(r is not None for r in self._slot_req):
+            # idle: nothing ran, so the mirrors still hold
+            self._status_mirror = (done, pos)
+            return False
+        if self.paged:
+            self._top_up_pages(pos, done)
+        self._state = gen.run_steps(self._tp, self._cpp, self._state,
+                                    self.cfg, self.decode_chunk)
+        self._harvest(self._state)
+        return True
+
+    def _loop(self) -> None:
+        # inference_mode is thread-local: the scheduler thread enters it.
+        # A failing step fails the in-flight slots and goes on; after 3
+        # failures in a row the fault is taken as persistent: everything
+        # fails and the thread halts.
+        consecutive = 0
+        with torch.inference_mode():
+            while not self._stop.is_set():
+                try:
+                    worked = self.step()
+                    consecutive = 0
+                except Exception as e:
+                    traceback.print_exc()
+                    consecutive += 1
+                    if consecutive >= 3:
+                        with self._submit_lock:
+                            self._closed = True
+                        self._stop.set()
+                        self._abort_inflight(e, drain_queue=True)
+                        print("batcher: 3 consecutive scheduler failures; "
+                              "halting", file=sys.stderr)
+                        return
+                    self._abort_inflight(e, drain_queue=False)
+                    time.sleep(0.05)
+                    continue
+                if not worked:
+                    time.sleep(0.002)
+
+    def _abort_inflight(self, exc: Exception, drain_queue: bool) -> None:
+        """After a failed step: fail the in-flight requests and free
+        their slots (and pages); queued requests survive unless
+        ``drain_queue``."""
+        self._status_mirror = None
+        inflight = [s for s in range(self.batch_size)
+                    if self._slot_req[s] is not None]
+        _fail([self._slot_req[s] for s in inflight], exc)
+        try:
+            self._free_slots_on_device(inflight)
+        except Exception:
+            # the device is gone: leak the pages rather than hand out
+            # pages a stale table may still point at
+            for s in inflight:
+                self._slot_req[s] = None
+                if self.paged:
+                    self._slot_pages[s] = []
+        if drain_queue:
+            leftovers = self._waiting + self._backlog + self._drain_queue()
+            self._waiting, self._backlog = [], []
+            _fail(leftovers, exc)
+
+
+def _fail(reqs, exc: BaseException) -> None:
+    for r in reqs:
+        if not r.future.done():
+            r.future.set_exception(exc)
+
+
+def _cast(tree: dict, dtype) -> dict:
+    """Float weights to ``dtype`` (int8 weights and their scales stay)."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = _cast(v, dtype)
+        elif isinstance(v, torch.Tensor) and v.is_floating_point():
+            out[k] = v.to(dtype)
+        elif k != "layers_list":
+            out[k] = v
+    return out
+
+
+def _dequantize(talker: dict, dtype) -> dict:
+    """An int8 talker as dense weights in ``dtype``; the fused q|k|v and
+    gate|up products stay fused."""
+    out = dict(talker)
+    out.pop("layers_list", None)
+    out["layers"] = {k: quant.dequantize(v, dtype)
+                     if isinstance(v, quant.QTensor) else v
+                     for k, v in talker["layers"].items()}
+    if isinstance(talker.get("codec_head"), quant.QTensor):
+        out["codec_head"] = quant.dequantize(talker["codec_head"], dtype)
+    return out

@@ -121,3 +121,35 @@ def test_cp_decode_kernel_matches_plain(cuda, greedy):
     torch.testing.assert_close(tcp.cp_decode_cuda(*args, **kw),
                                tcp.cp_decode_plain(*args, **kw), rtol=0,
                                atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_matches_plain(cuda, dtype):
+    from qwen3_tts_tpu_torch.ops.kernels import decode_attention as tda
+    g = torch.Generator(device=cuda).manual_seed(3)
+    B, Hq, Hkv, Dh, S = 3, 8, 4, 64, 80
+    q = torch.randn((B, Hq, Dh), generator=g, device=cuda).to(dtype)
+    k = torch.randn((B, S, Hkv, Dh), generator=g, device=cuda).to(dtype)
+    v = torch.randn((B, S, Hkv, Dh), generator=g, device=cuda).to(dtype)
+    pos = torch.tensor([0, S - 1, 33], device=cuda)
+    torch.testing.assert_close(tda.decode_attention_cuda(q, k, v, pos),
+                               tda.decode_attention_plain(q, k, v, pos),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_matches_plain(cuda, dtype):
+    from qwen3_tts_tpu_torch.ops.kernels import paged_attention as tpa
+    g = torch.Generator(device=cuda).manual_seed(4)
+    B, Hq, Hkv, Dh, P, psz, MAXP = 3, 8, 4, 64, 20, 16, 5
+    q = torch.randn((B, Hq, Dh), generator=g, device=cuda).to(dtype)
+    pool = torch.randn((2, P, psz, Hkv, Dh), generator=g,
+                       device=cuda).to(dtype)
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(0))
+    table = (perm[:B * MAXP] + 1).reshape(B, MAXP).to(torch.int32).to(cuda)
+    table[0, 2:] = 0
+    pos = torch.tensor([20, MAXP * psz - 1, 47], device=cuda)
+    torch.testing.assert_close(
+        tpa.paged_attention_cuda(q, pool[0], pool[1], table, pos),
+        tpa.paged_attention_plain(q, pool[0], pool[1], table, pos),
+        rtol=0, atol=0)

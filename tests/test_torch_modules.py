@@ -86,6 +86,7 @@ def test_port_imports_without_jax():
     code = ("import sys\n"
             "import qwen3_tts_tpu_torch.engine.engine\n"
             "import qwen3_tts_tpu_torch.cli\n"
+            "import qwen3_tts_tpu_torch.serve.batching\n"
             "assert 'jax' not in sys.modules\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'qwen3_tts_tpu'))\n"
@@ -323,14 +324,15 @@ def test_greedy_samplers_match_jax():
     """Temperature 0: the port takes the first-index argmax; JAX's
     categorical over logits / 1e-6 puts all the mass on it too."""
     lg = _logits(np.random.default_rng(3), B=6, V=2048)
-    gen = torch.Generator().manual_seed(0)
+    seeds = tsmp.draw_seeds(tsmp.batch_keys(0, 6), torch.zeros(6),
+                            tsmp.SITE_CODE0)
     key = jax.random.PRNGKey(0)
     want_p = [int(jsmp.topk_softmax_topp_sample(jnp.asarray(r), key, 50, 0.0,
                                                 0.95)) for r in lg]
     want_t = [int(jsmp.topk_temperature_sample(jnp.asarray(r), key, 50, 0.0))
               for r in lg]
-    got_p = tsmp.topk_softmax_topp_sample(_t(lg), gen, 50, 0.0, 0.95)
-    got_t = tsmp.topk_temperature_sample(_t(lg), gen, 50, 0.0)
+    got_p = tsmp.topk_softmax_topp_sample(_t(lg), seeds, 50, 0.0, 0.95)
+    got_t = tsmp.topk_temperature_sample(_t(lg), seeds, 50, 0.0)
     assert got_p.tolist() == want_p == list(lg.argmax(-1))
     assert got_t.tolist() == want_t
 
@@ -347,8 +349,8 @@ def _chi2_ok(draws, probs, n):
 
 
 def test_topk_topp_sampler_distribution_chi2():
-    """20k draws of the code_0 sampler against the top-k / temperature /
-    nucleus categorical computed in numpy."""
+    """20k draws of the code_0 sampler, one per row key, against the
+    top-k / temperature / nucleus categorical computed in numpy."""
     V, N, k, temp, top_p = 3072, 20000, 50, 0.8, 0.95
     rng = np.random.default_rng(4)
     logits = (rng.standard_normal(V) * 1.0).astype(np.float32)
@@ -359,9 +361,10 @@ def test_topk_topp_sampler_distribution_chi2():
     p = np.where(shifted < top_p, p, 0.0)
     probs = np.zeros(V)
     probs[order] = p / p.sum()
-    gen = torch.Generator().manual_seed(1)
+    seeds = tsmp.draw_seeds(tsmp.batch_keys(1, N), torch.zeros(N),
+                            tsmp.SITE_CODE0)
     draws = tsmp.topk_softmax_topp_sample(
-        _t(logits).expand(N, V), gen, k, temp, top_p).numpy()
+        _t(logits).expand(N, V), seeds, k, temp, top_p).numpy()
     assert probs[draws].min() > 0, "draw outside the nucleus"
     assert _chi2_ok(draws, probs, N)
 
@@ -373,7 +376,8 @@ def test_sample_code0_forces_eos():
     step = np.array([0, 31], np.int32)          # progress 31/15 > 2.0
     n_text = np.array([5, 5], np.int32)
     got = tsmp.sample_code0(_t(lg), _t(ring), _t(step), _t(n_text),
-                            torch.Generator().manual_seed(0), scfg)
+                            tsmp.draw_seeds(tsmp.batch_keys(0, 2), _t(step),
+                                            tsmp.SITE_CODE0), scfg)
     assert got.dtype == torch.int32
     assert int(got[1]) == C.CODEC_EOS_ID
     assert 0 <= int(got[0]) < C.NUM_AUDIO_CODES or \
@@ -435,7 +439,8 @@ def test_predict_codes_greedy_matches_jax(params):
                              TINY.code_predictor,
                              C.SamplingConfig(cp_temperature=0.0))
     got = tcp.predict_codes(tp["code_predictor"], _t(hidden), _t(c0),
-                            torch.Generator().manual_seed(0),
+                            tsmp.token_seeds(tsmp.batch_keys(0, 2),
+                                             torch.zeros(2))[:, 1:],
                             PTINY.code_predictor,
                             pconfig.SamplingConfig(cp_temperature=0.0))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
