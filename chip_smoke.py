@@ -7,8 +7,10 @@
    the CUDA kernels from csrc/ (build seconds).
 2. Kernels: each hand-written kernel against its plain PyTorch version on
    the card at the main paths' shapes (full 0.6B geometry, random
-   weights): K1 qmatmul, K3 talker_step, K2 cp_decode, K5
-   decode_attention, K4 paged_attention, with the stated tolerances; the
+   weights): K1 qmatmul, K3 talker_step, K7 talker_step_merged (both
+   variants, also against K3), K2 cp_decode, K5 decode_attention, K4
+   paged_attention, K6 decode_attention_kv_int8, with the stated
+   tolerances; the
    time of each beside its plain version's, its bound (bytes or
    operations at the card's published peaks) and, where one PyTorch call
    computes the same function, that call's time.
@@ -22,7 +24,13 @@
    (K4); each run twice, which must give equal codes (the paged rerun
    with its free pages handed out in reverse order).
 6. synthesize_batch: 3 texts in one batched decode (bf16, K5).
-7. One JSON line of per-kernel results, then the card line, then
+7. The port of tools/dev/bench_kv_int8.py (qwen3_tts_tpu_torch.tools.
+   bench_kv_int8): the bf16 and the int8-KV talker decode loops (K6) at
+   B = 4 and 8; the hidden cosine between them must stay >= 0.99.
+8. The port of tools/dev/microbench_talker_merged.py: run_steps with the
+   talker step swapped for K3, K7 merged and K7 mergedvec; equal codes,
+   each variant launching its own kernel and no other.
+9. One JSON line of per-kernel results, then the card line, then
    {"ok": true, "device": {...}} as the last line.
 
 Every path is driven with the launch counters set to 0 just before it and
@@ -555,6 +563,177 @@ def phase_paged_attention(card: str) -> dict:
             "shape": f"B=4 psz={psz} MAXP={MAXP} P={P} bf16"}
 
 
+def phase_talker_merged(eng, card: str) -> list:
+    """K7 at full geometry on the engine's int8 talker, premerged, B = 1
+    and 3 with pos 490 in row 0 (as in the K3 phase): both variants
+    against their plain version and against K3's kernel on the same
+    inputs, bit for bit; the time of each (and K3's, in the same call) by
+    CUDA-graph replay beside its bound."""
+    import torch
+    from qwen3_tts_tpu_torch.models import transformer as tfm
+    from qwen3_tts_tpu_torch.ops.kernels import talker_merged as tm
+    from qwen3_tts_tpu_torch.ops.kernels.talker_step import (
+        talker_step_cuda, talker_step_plain)
+    cfg = eng.cfg.talker
+    layers = tm.with_merged(eng._tp["layers"])
+    S, eps = cfg.max_seq_len, cfg.rms_norm_eps
+    cos, sin = tfm.rope_cos_sin(torch.arange(S, device="cuda"),
+                                cfg.head_dim, cfg.rope_theta)
+    g = torch.Generator(device="cuda").manual_seed(13)
+    names = {False: "talker_step_merged", True: "talker_step_mergedvec"}
+    worst = {False: 0.0, True: 0.0}
+    for B in (1, 3):
+        x = (torch.randn((B, cfg.hidden_size), generator=g, device="cuda")
+             * 0.1).bfloat16()
+        kv = (torch.randn((cfg.num_layers, 2, B, S, cfg.num_kv_heads,
+                           cfg.head_dim), generator=g, device="cuda")
+              * 0.5).bfloat16()
+        pos = torch.tensor([490, 17, 311][:B], device="cuda")
+        h3, r3 = talker_step_cuda(layers, x, pos, kv, cos, sin, eps)
+        for vec in (False, True):
+            hk, rk = tm.talker_merged_cuda(layers, x, pos, kv, cos, sin, eps,
+                                           vec)
+            hp, rp = tm.talker_merged_plain(layers, x, pos, kv, cos, sin,
+                                            eps, vec)
+            torch.cuda.synchronize()
+            err = max(float((hk.float() - hp.float()).abs().max()),
+                      float((rk - rp).abs().max()))
+            same = torch.equal(hk, h3) and torch.equal(rk, r3)
+            print(f"K7 {names[vec]} B={B} pos={pos.tolist()}: max_abs_err "
+                  f"{err:.3e} against its plain version (h and rows); "
+                  f"bit-equal to K3: {same}")
+            check(err == 0, f"K7 {names[vec]} disagrees with its plain "
+                            f"version (B={B})")
+            check(same, f"K7 {names[vec]} differs from K3 (B={B})")
+            worst[vec] = max(worst[vec], err)
+    # timing at B = 1, pos 490 (the last x, kv of B = 3 cut to one row)
+    x1, kv1 = x[:1].contiguous(), kv[:, :, :1].contiguous()
+    p1 = pos[:1]
+    t3 = time_ms(lambda: talker_step_cuda(layers, x1, p1, kv1, cos, sin,
+                                          eps), 20, graph=True)
+    kvbytes = cfg.num_layers * 2 * 491 * cfg.num_kv_heads * cfg.head_dim * 2
+    rows_out = cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim * 4
+    out = []
+    for vec in (False, True):
+        t_k = time_ms(lambda: tm.talker_merged_cuda(
+            layers, x1, p1, kv1, cos, sin, eps, vec), 20, graph=True)
+        t_p = time_ms(lambda: tm.talker_merged_plain(
+            layers, x1, p1, kv1, cos, sin, eps, vec), 1, 2)
+        # bound: every input the variant reads once (int8 blocks, their
+        # scales and the norms, or the vec block), the K/V rows 0..pos, x;
+        # h and the fresh rows written
+        ins = (["m_wA", "m_wB", "m_vec"] if vec else
+               ["m_wA", "m_wB", "m_sA", "m_sB", "input_ln", "post_ln",
+                "q_norm", "k_norm"])
+        b_ms, b_by = least_time(nbytes(*[layers[n] for n in ins]) + kvbytes
+                                + 2 * cfg.hidden_size * 2 + rows_out)
+        print(f"  time {names[vec]} B=1 pos 490: kernel {t_k:.4f} ms device "
+              f"(CUDA graph replay), K3 {t3:.4f} ms in the same call, plain "
+              f"{t_p:.4f} ms; bound {b_ms:.4f} ms ({b_by}) [{card}]")
+        out.append({"name": names[vec], "route": "cuda",
+                    "source": "qwen3_tts_tpu_torch/csrc/talker_step.cu",
+                    "replaces": "tools/dev/microbench_talker_merged.py:307",
+                    "max_abs_err": worst[vec], "ms": t_k, "plain_ms": t_p,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+                    "k3_ms_same_call": t3,
+                    "shape": f"B=1 S={S} L={cfg.num_layers} pos 490"})
+    return out
+
+
+def phase_kv_int8(card: str) -> dict:
+    """K6 at the talker's geometry (Hq 16, Hkv 8, Dh 128, S 512) against
+    its plain version, f32 and bf16 q, B = 1, 4 and 8, positions with 0
+    and 511 (error 0 expected: the plain version adds up in the kernel's
+    order); rows past pos poisoned change no bit; the time at B = 4 bf16
+    beside the bound. No single PyTorch call reads an int8 cache with
+    per-row scales: SDPA over the same rows dequantized to bf16 is
+    printed as a reference only."""
+    import torch
+    import torch.nn.functional as F
+    from qwen3_tts_tpu_torch.ops.kernels.kv_int8 import (
+        decode_attention_kv_int8_cuda, decode_attention_kv_int8_plain,
+        dequantize_kv_rows, quantize_kv_rows)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    S, Hq, Hkv, Dh = 512, 16, 8, 128
+    POS = [0, S - 1, 200, 37, 450, 1, 300, 64]
+
+    def cache(B):
+        kf = torch.randn((B, Hkv, S, Dh), generator=g, device="cuda") * 0.5
+        vf = torch.randn((B, Hkv, S, Dh), generator=g, device="cuda") * 0.5
+        return kf, vf
+
+    def pos_of(B):
+        return torch.tensor(POS[:B] if B > 1 else [S - 1], device="cuda")
+
+    worst = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        for B in (1, 4, 8):
+            q = torch.randn((B, Hq, Dh), generator=g, device="cuda").to(dtype)
+            kf, vf = cache(B)
+            args = (q, *quantize_kv_rows(kf), *quantize_kv_rows(vf), pos_of(B))
+            ref = decode_attention_kv_int8_plain(*args)
+            got = decode_attention_kv_int8_cuda(*args)
+            torch.cuda.synchronize()
+            err = float((got.float() - ref.float()).abs().max())
+            print(f"K6 decode_attention_kv_int8 {str(dtype)[6:]} B={B} pos="
+                  f"{args[-1].tolist()}: max_abs_err {err:.3e}")
+            check(got.dtype == dtype and err == 0,
+                  f"K6 disagrees with its plain version ({dtype}, B={B})")
+            worst = max(worst, err)
+    # poison: rows past pos at +-99 before quantizing change no bit
+    B = 4
+    q = torch.randn((B, Hq, Dh), generator=g, device="cuda").bfloat16()
+    kf, vf = cache(B)
+    pos = pos_of(B)
+    a = decode_attention_kv_int8_cuda(q, *quantize_kv_rows(kf),
+                                      *quantize_kv_rows(vf), pos)
+    for b, p in enumerate(pos.tolist()):
+        kf[b, :, p + 1:] = 99.0
+        vf[b, :, p + 1:] = -99.0
+    kq, ks = quantize_kv_rows(kf)
+    vq, vs = quantize_kv_rows(vf)
+    same = torch.equal(decode_attention_kv_int8_cuda(q, kq, ks, vq, vs, pos),
+                       a)
+    print(f"K6 rows past pos poisoned (+-99): output unchanged: {same}")
+    check(same, "K6 reads rows past pos")
+    # time at B = 4, bf16 q: 28 layers' caches (117 MB), so each call
+    # streams its cache from HBM as in a decode step
+    caches = [(kq, ks, vq, vs)] + [tuple(t.clone() for t in (kq, ks, vq, vs))
+                                   for _ in range(27)]
+    it = itertools.cycle(range(28)).__next__
+    t_k = time_ms(lambda: decode_attention_kv_int8_cuda(q, *caches[it()],
+                                                        pos), 56, graph=True)
+    t_p = time_ms(lambda: decode_attention_kv_int8_plain(q, kq, ks, vq, vs,
+                                                         pos), 2, 3)
+    rows = int((pos + 1).sum())
+    # the JAX CostEstimate's bytes (kv_int8.py:120-123) over the rows
+    # 0..pos: int8 K and V plus their f32 scales; q read and the output
+    # written at their own size
+    b_ms, b_by = least_time(2 * rows * Hkv * (Dh + 4) + nbytes(q, pos)
+                            + q.numel() * 2,
+                            4.0 * rows * Hq * Dh + 2.0 * rows * Hkv * Dh)
+    mask = (torch.arange(S, device="cuda")[None, :]
+            <= pos[:, None])[:, None, None, :]
+    deq = [(dequantize_kv_rows(c[0], c[1]).bfloat16(),
+            dequantize_kv_rows(c[2], c[3]).bfloat16()) for c in caches]
+    sdpa = time_ms(lambda: F.scaled_dot_product_attention(
+        q[:, :, None], *deq[it()], attn_mask=mask, enable_gqa=True), 56,
+        graph=True)
+    del deq, caches
+    print(f"  time B=4 bf16 S={S}: kernel {t_k:.5f} ms device (CUDA graph "
+          f"replay, int8 K/V from HBM), plain {t_p:.3f} ms; bound "
+          f"{b_ms:.5f} ms ({b_by}: {rows} K/V rows); reference only, not a "
+          f"library call for this function: SDPA over the same rows "
+          f"dequantized to bf16 {sdpa} ms [{card}]")
+    return {"name": "decode_attention_kv_int8", "route": "cuda",
+            "source": "qwen3_tts_tpu_torch/csrc/kv_int8.cu",
+            "replaces": "qwen3_tts_tpu/ops/pallas/kv_int8.py:115",
+            "max_abs_err": worst, "ms": t_k, "plain_ms": t_p,
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "sdpa_bf16_reference_ms": sdpa,
+            "shape": f"B=4 Hq=16 Hkv=8 Dh=128 S={S} int8 KV, bf16 q"}
+
+
 def _encode(text: str):
     """Byte-fallback ids padded to the engine's text bucket."""
     import numpy as np
@@ -721,6 +900,66 @@ def phase_synth_batch(card: str, counters: dict) -> None:
           f"launches {launches} [{card}]")
 
 
+def phase_bench_kv_int8(card: str, counters: dict) -> dict:
+    """The port of tools/dev/bench_kv_int8.py at TTSConfig() (28 layers,
+    S 512): the bf16 loop (models/transformer.decode_step) against the
+    int8-KV loop (K6) at B = 4 and 8, 16 steps, 3 interleaved trials."""
+    import torch
+    from qwen3_tts_tpu_torch.config import TTSConfig
+    from qwen3_tts_tpu_torch.tools import bench_kv_int8
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = bench_kv_int8.run(TTSConfig(), batches=(4, 8), rep=16, trials=3,
+                            device="cuda")
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for B, row in res.items():
+        print(f"bench_kv_int8 B={B}: hidden cosine min {row['cos_min']:.6f} "
+              f"last {row['cos_last']:.6f}; bf16 {row['bf16_ms']:.3f} "
+              f"ms/step, int8 KV {row['int8kv_ms']:.3f} ms/step (medians of "
+              f"3; minima {row['bf16_min_ms']:.3f} / "
+              f"{row['int8kv_min_ms']:.3f}) [{card}]")
+        check(row["cos_min"] >= 0.99,
+              f"bench_kv_int8 B={B}: hidden cosine {row['cos_min']} < 0.99")
+    print(f"bench_kv_int8: {time.perf_counter() - t0:.1f} s, launches "
+          f"{launches}")
+    check(launches["decode_attention_kv_int8"] > 0,
+          "bench_kv_int8: K6 was not launched")
+    return {"decode_attention_kv_int8": launches["decode_attention_kv_int8"]}
+
+
+def phase_microbench_merged(card: str, counters: dict) -> dict:
+    """The port of tools/dev/microbench_talker_merged.py at TTSConfig():
+    48 tokens through run_steps per variant, then 2 interleaved trials.
+    The tool asserts equal codes; each variant's checked run must launch
+    its own talker step kernel and no other."""
+    import torch
+    from qwen3_tts_tpu_torch.config import TTSConfig
+    from qwen3_tts_tpu_torch.tools import microbench_talker_merged as mb
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    res = mb.run(TTSConfig(), n_tok=48, trials=2, device="cuda")
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    for name, per in res["launches"].items():
+        print(f"microbench_talker_merged {name}: launches in its checked run "
+              f"{per}")
+        check(per[name] > 0, f"{name}: its step kernel never launched")
+        check(all(n == 0 for k, n in per.items() if k != name),
+              f"{name}: another variant's kernel launched: {per}")
+    print(f"microbench_talker_merged: codes equal across the variants "
+          f"(n_codes {res['n_codes']}); ms/token "
+          f"{ {k: round(v, 3) for k, v in res['ms_per_tok'].items()} } "
+          f"[{card}]; {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"metric": "talker_merged_streams_ms_per_tok",
+                      **res["ms_per_tok"]}))
+    check(res["n_codes"] >= 1, "microbench_talker_merged: no codes")
+    return {k: launches[k] for k in ("talker_step_merged",
+                                     "talker_step_mergedvec")}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -751,9 +990,13 @@ def main() -> int:
     from qwen3_tts_tpu_torch.ops.kernels.cp_decode import cp_decode_steps
     from qwen3_tts_tpu_torch.ops.kernels.decode_attention import (
         decode_attention)
+    from qwen3_tts_tpu_torch.ops.kernels.kv_int8 import (
+        decode_attention_kv_int8)
     from qwen3_tts_tpu_torch.ops.kernels.paged_attention import (
         paged_decode_attention)
     from qwen3_tts_tpu_torch.ops.kernels.qmatmul import qmatmul
+    from qwen3_tts_tpu_torch.ops.kernels.talker_merged import (
+        talker_decode_step_merged, talker_decode_step_mergedvec)
     from qwen3_tts_tpu_torch.ops.kernels.talker_step import (
         talker_decode_step_fused)
 
@@ -764,12 +1007,16 @@ def main() -> int:
           f"{time.perf_counter() - t0:.1f} s")
 
     kernels = [phase_qmatmul(card), phase_talker_step(eng, card),
-               phase_cp_decode(eng, card), phase_decode_attention(card),
-               phase_paged_attention(card)]
+               *phase_talker_merged(eng, card), phase_cp_decode(eng, card),
+               phase_decode_attention(card), phase_paged_attention(card),
+               phase_kv_int8(card)]
     counters = {"qmatmul": qmatmul, "talker_step": talker_decode_step_fused,
                 "cp_decode": cp_decode_steps,
                 "decode_attention": decode_attention,
-                "paged_attention": paged_decode_attention}
+                "paged_attention": paged_decode_attention,
+                "decode_attention_kv_int8": decode_attention_kv_int8,
+                "talker_step_merged": talker_decode_step_merged,
+                "talker_step_mergedvec": talker_decode_step_mergedvec}
     launches = phase_slice(eng, card, counters)
     for k in ("qmatmul", "talker_step", "cp_decode"):
         check(launches[k] > 0, f"{k} never launched in the slice")
@@ -780,6 +1027,8 @@ def main() -> int:
     launches.update(phase_batcher(params, card, counters))
     del params
     phase_synth_batch(card, counters)
+    launches.update(phase_bench_kv_int8(card, counters))
+    launches.update(phase_microbench_merged(card, counters))
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}))

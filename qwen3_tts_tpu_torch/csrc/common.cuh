@@ -1,5 +1,7 @@
-// Device-side primitives shared by the qmatmul (K1), cp_decode (K2) and
-// talker_step (K3) kernels. Twin of qwen3_tts_tpu/ops/pallas/common.py:
+// Device-side primitives shared by the port's kernels: the qmm tile of
+// qmatmul (K1), cp_decode (K2) and talker_step (K3, K7), and the block
+// reductions of the attention kernels. Twin of
+// qwen3_tts_tpu/ops/pallas/common.py:
 // one definition of the RMS norm, rotate-half RoPE, the int8 product and
 // the masking constant, so the three kernels cannot drift apart. Their
 // plain PyTorch versions sit in qwen3_tts_tpu_torch/ops/kernels/common.py.
@@ -116,6 +118,8 @@ __device__ __forceinline__ float rope_at(const float* row, int d, int Dh,
 // ---------------------------------------------------------------------------
 // K0 qmm: out[r, n] = (sum_k bf16(x[r, k]) * bf16(w[k, n])) * scale[n]
 //
+// w is row-major with a row stride of ldw >= N elements: a product may read
+// a column block of a wider matrix (the merged weight streams of K7).
 // One block computes a tile of up to QMM_RT rows x QMM_NT = 32 adjacent
 // columns. The rows sit in shared memory as bf16 (xs, row stride K); the
 // prologue that fills them (plain, RMS-normed, SwiGLU or gathered) is the
@@ -185,7 +189,7 @@ __device__ __forceinline__ void load8<float>(const float* w, long i,
 // QMM_NT floats.
 template <typename W>
 __device__ void qmm_tile(const __nv_bfloat16* xs, int R, int K, const W* w,
-                         int N, int n0, float* red, float* acc_out) {
+                         int N, int ldw, int n0, float* red, float* acc_out) {
   const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
   const int cg = lane & (QMM_CG - 1), ksl = lane >> 2;
   const int ks = 8 * warp + ksl;
@@ -201,7 +205,7 @@ __device__ void qmm_tile(const __nv_bfloat16* xs, int R, int K, const W* w,
 #pragma unroll 8
     for (int k = ks; k < K; k += QMM_KSLICES) {
       float wv[QMM_CPT];
-      load8<W>(w, (long)k * N + n, wv);
+      load8<W>(w, (long)k * ldw + n, wv);
 #pragma unroll
       for (int r = 0; r < QMM_RT; ++r) {
         if (r < R) {
@@ -251,7 +255,8 @@ struct QmmArgs {
   const void* x;  int x_bf16; int ldx;  // rows (GATHER: the (V, K) table)
   const void* nw; int nw_bf16;          // RMS: norm weight (K,)
   const int* tok;                       // GATHER: table row of each row
-  const void* w;                        // (K, N) int8 / bf16 / f32
+  const void* w; int ldw;               // (K, N) int8 / bf16 / f32, row
+                                        // stride ldw (= N when dense)
   const float* scale;                   // (N,) or null
   const void* bias; int bias_bf16;      // (N,) or null
   void* out; int ldo;                   // (R, ldo)
@@ -310,7 +315,8 @@ __global__ void __launch_bounds__(QMM_THREADS) qmm_kernel(QmmArgs a) {
 
   const int n0 = blockIdx.x * QMM_NT;
   float acc = 0.f;
-  qmm_tile<W>(xs, R, K, reinterpret_cast<const W*>(a.w), a.N, n0, red, &acc);
+  qmm_tile<W>(xs, R, K, reinterpret_cast<const W*>(a.w), a.N, a.ldw, n0, red,
+              &acc);
   if (t < R * QMM_NT) {
     const int r = t / QMM_NT, n = n0 + t % QMM_NT;
     if (n < a.N) {
@@ -338,7 +344,13 @@ template <int PRO, typename W, int EPI>
 cudaError_t launch_qmm(const QmmArgs& a, cudaStream_t st) {
   const size_t smem = (size_t)QMM_RT * a.K * sizeof(__nv_bfloat16) +
                       (size_t)QMM_GROUPS * QMM_RT * QMM_NT * sizeof(float);
-  if (smem > (size_t)QMM_MAX_SMEM || a.N % QMM_CPT != 0 || a.R < 1)
+  // load8 reads QMM_CPT adjacent weights at once (8 bytes of int8, 16 of
+  // bf16, two 16-byte halves of f32): every row start must keep that
+  // alignment, so ldw is a multiple of QMM_CPT and w is aligned
+  const uintptr_t align = sizeof(W) == 1 ? 8 : 16;
+  if (smem > (size_t)QMM_MAX_SMEM || a.N % QMM_CPT != 0 || a.R < 1 ||
+      a.ldw < a.N || a.ldw % QMM_CPT != 0 ||
+      reinterpret_cast<uintptr_t>(a.w) % align != 0)
     return cudaErrorInvalidValue;
   static bool attr_set = false;  // one per instantiation
   if (!attr_set) {

@@ -243,7 +243,7 @@ extern "C" int q3_cp_decode(
     a.x = (const char*)embs + (long)i * V * H * embsz; a.x_bf16 = emb_bf16;
     a.tok = tok_cur; a.K = H; a.ldx = H;
     a.w = mtp_w; a.bias = mtp_b; a.bias_bf16 = mtp_bf16;
-    a.out = xbuf; a.ldo = H; a.N = H;
+    a.out = xbuf; a.ldo = H; a.N = H; a.ldw = H;
     Q3_TRY(mtp_bf16 ? embed<__nv_bfloat16>(a, st) : embed<float>(a, st));
 
     for (int l = 0; l < L; ++l) {
@@ -259,7 +259,7 @@ extern "C" int q3_cp_decode(
         a = QmmArgs{}; a.eps = eps; a.R = B;
         a.x = xbuf; a.x_bf16 = 1; a.ldx = H; a.nw = in_ln;
         a.nw_bf16 = nw_bf16; a.w = wq[j]; a.scale = ws[j];
-        a.out = outs[j]; a.ldo = ns[j]; a.K = H; a.N = ns[j];
+        a.out = outs[j]; a.ldo = ns[j]; a.K = H; a.N = ns[j]; a.ldw = ns[j];
         Q3_TRY((launch_qmm<PRO_RMS, int8_t, EPI_STORE_F32>(a, st)));
       }
       cp_attn_kernel<<<dim3(nH, B), ATT_THREADS, att_smem, st>>>(
@@ -271,7 +271,7 @@ extern "C" int q3_cp_decode(
       a = QmmArgs{}; a.eps = eps; a.R = B;
       a.x = attn_buf; a.x_bf16 = 1; a.ldx = QD;
       a.w = o_q + (long)l * QD * H; a.scale = o_s + (long)l * H;
-      a.out = xbuf; a.ldo = H; a.K = QD; a.N = H;
+      a.out = xbuf; a.ldo = H; a.K = QD; a.N = H; a.ldw = H;
       Q3_TRY((launch_qmm<PRO_PLAIN, int8_t, EPI_ADD_BF16>(a, st)));
 
       const int8_t* gw[2] = {g_q + (long)l * H * I, u_q + (long)l * H * I};
@@ -280,20 +280,20 @@ extern "C" int q3_cp_decode(
         a = QmmArgs{}; a.eps = eps; a.R = B;
         a.x = xbuf; a.x_bf16 = 1; a.ldx = H; a.nw = po_ln;
         a.nw_bf16 = nw_bf16; a.w = gw[j]; a.scale = gs[j];
-        a.out = gu_buf + j * I; a.ldo = 2 * I; a.K = H; a.N = I;
+        a.out = gu_buf + j * I; a.ldo = 2 * I; a.K = H; a.N = I; a.ldw = I;
         Q3_TRY((launch_qmm<PRO_RMS, int8_t, EPI_STORE_F32>(a, st)));
       }
       a = QmmArgs{}; a.eps = eps; a.R = B;
       a.x = gu_buf; a.x_bf16 = 0; a.ldx = 2 * I;
       a.w = d_q + (long)l * I * H; a.scale = d_s + (long)l * H;
-      a.out = xbuf; a.ldo = H; a.K = I; a.N = H;
+      a.out = xbuf; a.ldo = H; a.K = I; a.N = H; a.ldw = H;
       Q3_TRY((launch_qmm<PRO_SWIGLU, int8_t, EPI_ADD_BF16>(a, st)));
     }
     a = QmmArgs{}; a.eps = eps; a.R = B;
     a.x = xbuf; a.x_bf16 = 1; a.ldx = H; a.nw = final_norm;
     a.nw_bf16 = nw_bf16; a.w = head_q + (long)(i + 1) * H * V;
     a.scale = head_s + (long)(i + 1) * V;
-    a.out = logits; a.ldo = V; a.K = H; a.N = V;
+    a.out = logits; a.ldo = V; a.K = H; a.N = V; a.ldw = V;
     Q3_TRY((launch_qmm<PRO_RMS, int8_t, EPI_STORE_F32>(a, st)));
 
     cp_sample_kernel<<<B, SAMPLE_THREADS, 0, st>>>(

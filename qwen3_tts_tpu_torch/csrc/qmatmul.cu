@@ -23,7 +23,7 @@ extern "C" int q3_qmatmul(const void* x, int x_bf16, const void* q,
   a.x = x; a.x_bf16 = x_bf16; a.ldx = K;
   a.w = q; a.scale = reinterpret_cast<const float*>(scale);
   a.out = out; a.ldo = N;
-  a.R = M; a.K = K; a.N = N;
+  a.R = M; a.K = K; a.N = N; a.ldw = N;
   return (int)launch_qmm<PRO_PLAIN, int8_t, EPI_STORE_F32>(
       a, reinterpret_cast<cudaStream_t>(stream));
 }

@@ -23,6 +23,17 @@
 // a fixed sequence of five launches (qkv, attention, o_proj, gate|up,
 // down); a grid-wide persistent version that overlaps the layers is
 // later work.
+//
+// K7 is the same step, through the same entry point, over the merged
+// weight streams of tools/dev/microbench_talker_merged.py: per layer one
+// int8 block [qkv | gate|up] (H, QKVD + 2I) and one [o ; down] (QD + I, H),
+// and optionally one f32 block of the eight per-layer vectors. It replaces
+// the TPU kernel at tools/dev/microbench_talker_merged.py:307 (merged_step;
+// body _build_merged_kernel). The layer loop is K3's: only the weight
+// pointers, their row strides (the qmm tile's ldw) and the scale and norm
+// pointers differ, so K7 is bit-equal to K3 on the same weights. The
+// merged TPU kernel saved DMA issues per layer; here each product still
+// streams its own column block, so K7 should cost what K3 costs.
 #include "common.cuh"
 
 namespace {
@@ -123,25 +134,57 @@ talker_attn_kernel(const float* qkv, const void* qn, const void* kn,
   if (act) attn[(long)b * QD + hq * Dh + d] = __float2bfloat16_rn(acc);
 }
 
-}  // namespace
+// a per-layer vector (scales f32; norm weights f32 or bf16): layer l's
+// starts at element l * ls of p
+struct LVec {
+  const void* p;
+  long ls;
+};
 
-extern "C" int q3_talker_step(
-    const void* x, int x_bf16, const int* pos, const float* cos_t,
-    const float* sin_t, const int8_t* qkv_q, const float* qkv_s,
-    const int8_t* o_q, const float* o_s, const int8_t* gu_q,
-    const float* gu_s, const int8_t* d_q, const float* d_s,
-    const void* input_ln, const void* post_ln, const void* q_norm,
-    const void* k_norm, int nw_bf16, const void* kv, int kv_bf16,
-    void* h_out, float* rows_out, float* hbuf, float* qkv_buf,
-    __nv_bfloat16* attn_buf, float* gu_buf, int L, int B, int S, int H,
-    int nH, int nKV, int Dh, int I, int eps_bits, int scale_bits,
-    void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  const float eps = host_float(eps_bits);
-  const float scale = host_float(scale_bits);
-  if (B < 1 || B > QMM_RT || Dh > ATT_THREADS || Dh % 2) return (int)cudaErrorInvalidValue;
+// a per-layer int8 matrix (K, N) stored in rows of ld >= N elements: layer
+// l's starts at element l * ls of q; s holds its per-column f32 scales
+struct LMat {
+  const int8_t* q;
+  long ls;
+  int ld;
+  LVec s;
+};
+
+struct TalkerWeights {
+  LMat qkv, o, gu, down;
+  LVec input_ln, post_ln, q_norm, k_norm;
+  int nw_bf16;  // the four norm weights' type
+};
+
+const void* at(const LVec& v, int l, long esz) {
+  return (const char*)v.p + (long)l * v.ls * esz;
+}
+
+// one product h-rows x layer l of m into out, through launch_qmm
+template <int PRO, int EPI>
+cudaError_t layer_qmm(const LMat& m, int l, const void* x, int x_bf16,
+                      int ldx, const void* nw, int nw_bf16, void* out,
+                      int ldo, int R, int K, int N, float eps,
+                      cudaStream_t st) {
+  QmmArgs a = {};
+  a.eps = eps; a.R = R;
+  a.x = x; a.x_bf16 = x_bf16; a.ldx = ldx; a.nw = nw; a.nw_bf16 = nw_bf16;
+  a.w = m.q + (long)l * m.ls; a.ldw = m.ld;
+  a.scale = (const float*)at(m.s, l, 4);
+  a.out = out; a.ldo = ldo; a.K = K; a.N = N;
+  return launch_qmm<PRO, int8_t, EPI>(a, st);
+}
+
+int talker_layers(const TalkerWeights& w, const void* x, int x_bf16,
+                  const int* pos, const float* cos_t, const float* sin_t,
+                  const void* kv, int kv_bf16, void* h_out, float* rows_out,
+                  float* hbuf, float* qkv_buf, __nv_bfloat16* attn_buf,
+                  float* gu_buf, int L, int B, int S, int H, int nH, int nKV,
+                  int Dh, int I, float eps, float scale, cudaStream_t st) {
+  if (B < 1 || B > QMM_RT || Dh > ATT_THREADS || Dh % 2)
+    return (int)cudaErrorInvalidValue;
   const int QD = nH * Dh, KVD = nKV * Dh, NQKV = QD + 2 * KVD;
-  const long esz = nw_bf16 ? 2 : 4, kvsz = kv_bf16 ? 2 : 4;
+  const long esz = w.nw_bf16 ? 2 : 4, kvsz = kv_bf16 ? 2 : 4;
   const long kv_layer = 2L * B * S * KVD;
   const size_t att_smem = (4 * Dh + 32 + V_TILE * Dh + S) * sizeof(float);
   if (att_smem > 48 * 1024) return (int)cudaErrorInvalidValue;
@@ -149,46 +192,70 @@ extern "C" int q3_talker_step(
   // h (f32) = bf16(x): the residual stream starts from the bf16 input
   Q3_TRY(launch_convert(x, x_bf16, hbuf, 0, 1, (long)B * H, st));
   for (int l = 0; l < L; ++l) {
-    const char* in_ln = (const char*)input_ln + l * H * esz;
-    const char* po_ln = (const char*)post_ln + l * H * esz;
-    QmmArgs a = {};
-    a.eps = eps; a.R = B;
-
     // qkv = qmm(bf16(rms(h, input_ln)), qkv)
-    a.x = hbuf; a.x_bf16 = 0; a.ldx = H; a.nw = in_ln; a.nw_bf16 = nw_bf16;
-    a.w = qkv_q + (long)l * H * NQKV; a.scale = qkv_s + (long)l * NQKV;
-    a.out = qkv_buf; a.ldo = NQKV; a.K = H; a.N = NQKV;
-    Q3_TRY((launch_qmm<PRO_RMS, int8_t, EPI_STORE_F32>(a, st)));
+    Q3_TRY((layer_qmm<PRO_RMS, EPI_STORE_F32>(
+        w.qkv, l, hbuf, 0, H, at(w.input_ln, l, esz), w.nw_bf16, qkv_buf,
+        NQKV, B, H, NQKV, eps, st)));
 
     talker_attn_kernel<<<dim3(nH, B), ATT_THREADS, att_smem, st>>>(
-        qkv_buf, (const char*)q_norm + l * Dh * esz,
-        (const char*)k_norm + l * Dh * esz, nw_bf16, cos_t, sin_t, pos,
-        (const char*)kv + l * kv_layer * kvsz, kv_bf16, attn_buf,
-        rows_out + l * 2L * B * KVD, B, S, nH, nKV, Dh, eps, scale);
+        qkv_buf, at(w.q_norm, l, esz), at(w.k_norm, l, esz), w.nw_bf16,
+        cos_t, sin_t, pos, (const char*)kv + l * kv_layer * kvsz, kv_bf16,
+        attn_buf, rows_out + l * 2L * B * KVD, B, S, nH, nKV, Dh, eps, scale);
     Q3_TRY(cudaGetLastError());
 
     // h += qmm(attn, o_proj)
-    a = QmmArgs{}; a.eps = eps; a.R = B;
-    a.x = attn_buf; a.x_bf16 = 1; a.ldx = QD;
-    a.w = o_q + (long)l * QD * H; a.scale = o_s + (long)l * H;
-    a.out = hbuf; a.ldo = H; a.K = QD; a.N = H;
-    Q3_TRY((launch_qmm<PRO_PLAIN, int8_t, EPI_ADD_F32>(a, st)));
+    Q3_TRY((layer_qmm<PRO_PLAIN, EPI_ADD_F32>(
+        w.o, l, attn_buf, 1, QD, nullptr, 0, hbuf, H, B, QD, H, eps, st)));
 
     // gu = qmm(bf16(rms(h, post_ln)), gate|up)
-    a = QmmArgs{}; a.eps = eps; a.R = B;
-    a.x = hbuf; a.x_bf16 = 0; a.ldx = H; a.nw = po_ln; a.nw_bf16 = nw_bf16;
-    a.w = gu_q + (long)l * H * 2 * I; a.scale = gu_s + (long)l * 2 * I;
-    a.out = gu_buf; a.ldo = 2 * I; a.K = H; a.N = 2 * I;
-    Q3_TRY((launch_qmm<PRO_RMS, int8_t, EPI_STORE_F32>(a, st)));
+    Q3_TRY((layer_qmm<PRO_RMS, EPI_STORE_F32>(
+        w.gu, l, hbuf, 0, H, at(w.post_ln, l, esz), w.nw_bf16, gu_buf,
+        2 * I, B, H, 2 * I, eps, st)));
 
     // h += qmm(bf16(silu(g) * u), down)
-    a = QmmArgs{}; a.eps = eps; a.R = B;
-    a.x = gu_buf; a.x_bf16 = 0; a.ldx = 2 * I;
-    a.w = d_q + (long)l * I * H; a.scale = d_s + (long)l * H;
-    a.out = hbuf; a.ldo = H; a.K = I; a.N = H;
-    Q3_TRY((launch_qmm<PRO_SWIGLU, int8_t, EPI_ADD_F32>(a, st)));
+    Q3_TRY((layer_qmm<PRO_SWIGLU, EPI_ADD_F32>(
+        w.down, l, gu_buf, 0, 2 * I, nullptr, 0, hbuf, H, B, I, H, eps,
+        st)));
   }
   // output through bf16, in the input's dtype
   Q3_TRY(launch_convert(hbuf, 0, h_out, x_bf16, 1, (long)B * H, st));
   return 0;
+}
+
+}  // namespace
+
+// K3 and K7. Each int8 matrix arrives as (q, layer stride, row stride ld,
+// scales, scales' layer stride) and each norm weight as (pointer, layer
+// stride), all in elements: K3 passes its four dense stacks (ld = N), K7
+// the column and row blocks of its merged [qkv | gate|up] and [o ; down]
+// streams, with the scales and norms from sA / sB and the layer dict or
+// all from the one vec block.
+extern "C" int q3_talker_step(
+    const void* x, int x_bf16, const int* pos, const float* cos_t,
+    const float* sin_t, const int8_t* qkv_q, long qkv_ls, int qkv_ld,
+    const float* qkv_s, long qkv_sls, const int8_t* o_q, long o_ls,
+    int o_ld, const float* o_s, long o_sls, const int8_t* gu_q, long gu_ls,
+    int gu_ld, const float* gu_s, long gu_sls, const int8_t* d_q,
+    long d_ls, int d_ld, const float* d_s, long d_sls, const void* input_ln,
+    long in_ls, const void* post_ln, long po_ls, const void* q_norm,
+    long qn_ls, const void* k_norm, long kn_ls, int nw_bf16, const void* kv,
+    int kv_bf16, void* h_out, float* rows_out, float* hbuf, float* qkv_buf,
+    __nv_bfloat16* attn_buf, float* gu_buf, int L, int B, int S, int H,
+    int nH, int nKV, int Dh, int I, int eps_bits, int scale_bits,
+    void* stream) {
+  TalkerWeights w;
+  w.qkv = {qkv_q, qkv_ls, qkv_ld, {qkv_s, qkv_sls}};
+  w.o = {o_q, o_ls, o_ld, {o_s, o_sls}};
+  w.gu = {gu_q, gu_ls, gu_ld, {gu_s, gu_sls}};
+  w.down = {d_q, d_ls, d_ld, {d_s, d_sls}};
+  w.input_ln = {input_ln, in_ls};
+  w.post_ln = {post_ln, po_ls};
+  w.q_norm = {q_norm, qn_ls};
+  w.k_norm = {k_norm, kn_ls};
+  w.nw_bf16 = nw_bf16;
+  return talker_layers(w, x, x_bf16, pos, cos_t, sin_t, kv, kv_bf16, h_out,
+                       rows_out, hbuf, qkv_buf, attn_buf, gu_buf, L, B, S, H,
+                       nH, nKV, Dh, I, host_float(eps_bits),
+                       host_float(scale_bits),
+                       reinterpret_cast<cudaStream_t>(stream));
 }

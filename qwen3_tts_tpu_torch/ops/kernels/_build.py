@@ -6,9 +6,10 @@ shared library with a plain C interface, at first use, into
 ``build/qwen3_tts_tpu_torch/`` at the repository root. The file name
 carries a hash of the sources and the flags, so an edited source builds
 anew. The library is loaded with ``ctypes``: every entry point takes
-pointers (``c_void_p``) and ints (``c_int``; floats travel as their f32
-bit pattern, see ``f32_bits``), launches on the stream it is given,
-allocates nothing, and returns ``cudaGetLastError()``.
+pointers (``c_void_p``), ints (``c_int``; floats travel as their f32
+bit pattern, see ``f32_bits``) and longs (``c_long``, element strides),
+launches on the stream it is given, allocates nothing, and returns
+``cudaGetLastError()``.
 
 No PyTorch header is compiled in, which keeps the build to seconds.
 """
@@ -113,11 +114,12 @@ def load() -> ctypes.CDLL:
 
 def function(name: str, sig: str):
     """Entry point ``name`` with argument kinds ``sig`` ('p' pointer,
-    'i' int); the returned callable raises if the CUDA status is not 0."""
+    'i' int, 'l' long); the returned callable raises if the CUDA status is
+    not 0."""
     lib = load()
     fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p if c == "p" else ctypes.c_int
-                   for c in sig]
+    kinds = {"p": ctypes.c_void_p, "i": ctypes.c_int, "l": ctypes.c_long}
+    fn.argtypes = [kinds[c] for c in sig]
     fn.restype = ctypes.c_int
 
     def call(*args):

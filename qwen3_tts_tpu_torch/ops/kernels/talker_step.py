@@ -93,7 +93,10 @@ def _check(cond: bool, msg: str):
 def talker_step_cuda(layers: Dict, x: torch.Tensor, pos: torch.Tensor,
                      kv: torch.Tensor, rope_cos: torch.Tensor,
                      rope_sin: torch.Tensor, eps: float):
-    """Launch K3; same contract as talker_step_plain."""
+    """Launch the kernel; same contract as talker_step_plain. The products
+    and the norm weights may be strided views over the layer axis and the
+    weight rows (K7 passes the blocks of its merged streams, see
+    talker_merged.merged_views); only their rows must be contiguous."""
     L, H, NQKV, Dh, QD, nH, nKV, I, B, S = _dims(layers, kv)
     _check(1 <= B <= MAX_B, f"batch {B} outside 1..{MAX_B}")
     _check(Dh <= 128 and Dh % 2 == 0, f"head_dim {Dh}")
@@ -107,10 +110,14 @@ def talker_step_cuda(layers: Dict, x: torch.Tensor, pos: torch.Tensor,
            "norm weights must share one dtype, bf16 or f32")
     quants = [layers[n] for n in ("qkv_proj", "o_proj", "gateup_proj",
                                   "down_proj")]
-    tensors = ([x, kv, rope_cos, rope_sin] + norms
-               + [t.q for t in quants] + [t.scale for t in quants])
-    _check(all(t.is_cuda and t.is_contiguous() for t in tensors),
-           "every operand must be a contiguous CUDA tensor")
+    _check(all(t.q.dtype == torch.int8 and t.scale.dtype == torch.float32
+               for t in quants), "products must be int8 with f32 scales")
+    _check(all(t.is_cuda and t.is_contiguous()
+               for t in (x, kv, rope_cos, rope_sin)),
+           "x, kv and the rope tables must be contiguous CUDA tensors")
+    _check(all(t.is_cuda and t.stride(-1) == 1
+               for t in norms + [a for t in quants for a in (t.q, t.scale)]),
+           "weights must be CUDA tensors with contiguous rows")
     _check(rope_cos.dtype == torch.float32 and rope_sin.dtype == torch.float32
            and rope_cos.shape[0] >= S, "rope tables must be f32 (>= S, Dh)")
     dev = x.device
@@ -124,14 +131,16 @@ def talker_step_cuda(layers: Dict, x: torch.Tensor, pos: torch.Tensor,
     gu_buf = torch.empty((B, 2 * I), **f32)
     _fn()(x.data_ptr(), int(x.dtype == torch.bfloat16), pos32.data_ptr(),
           rope_cos.data_ptr(), rope_sin.data_ptr(),
-          *[a.data_ptr() for t in quants for a in (t.q, t.scale)],
-          *[n.data_ptr() for n in norms], int(nw_dtype == torch.bfloat16),
+          *[a for t in quants for a in (t.q.data_ptr(), t.q.stride(0),
+                                        t.q.stride(1), t.scale.data_ptr(),
+                                        t.scale.stride(0))],
+          *[a for n in norms for a in (n.data_ptr(), n.stride(0))],
+          int(nw_dtype == torch.bfloat16),
           kv.data_ptr(), int(kv.dtype == torch.bfloat16),
           *[t.data_ptr() for t in (h_out, rows, hbuf, qkv_buf, attn_buf,
                                    gu_buf)],
           L, B, S, H, nH, nKV, Dh, I, _build.f32_bits(eps),
           _build.f32_bits(1.0 / (Dh ** 0.5)), _build.stream())
-    talker_decode_step_fused.launches += 1
     return h_out, rows
 
 
@@ -149,11 +158,19 @@ def talker_decode_step_fused(layers: Dict, x: torch.Tensor,
     elif x.is_cuda:
         h, rows = talker_step_cuda(layers, x, pos, kv, rope_cos, rope_sin,
                                    eps)
+        talker_decode_step_fused.launches += 1
     else:
         raise ValueError(f"talker_step: unsupported device {x.device}")
+    return h, scatter_rows(kv, pos, rows)
+
+
+def scatter_rows(kv: torch.Tensor, pos: torch.Tensor,
+                 rows: torch.Tensor) -> torch.Tensor:
+    """Write the fresh rows (L, 2, B, nKV, Dh) into kv (L, 2, B, S, nKV,
+    Dh) at each row's pos, in place; returns kv."""
     b_idx = torch.arange(kv.shape[2], device=kv.device)
     kv[:, :, b_idx, pos.long()] = rows.to(kv.dtype)
-    return h, kv
+    return kv
 
 
 talker_decode_step_fused.launches = 0
@@ -161,5 +178,5 @@ talker_decode_step_fused.launches = 0
 
 @functools.cache
 def _fn():
-    return _build.function("q3_talker_step", "pipppppppppppppppipipppppp"
-                                             "iiiiiiiiiip")
+    return _build.function("q3_talker_step", "pippp" + "plipl" * 4
+                           + "pl" * 4 + "ipi" + "p" * 6 + "i" * 10 + "p")

@@ -153,3 +153,46 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype):
         tpa.paged_attention_cuda(q, pool[0], pool[1], table, pos),
         tpa.paged_attention_plain(q, pool[0], pool[1], table, pos),
         rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_int8_kernel_matches_plain(cuda, dtype):
+    from qwen3_tts_tpu_torch.ops.kernels import kv_int8 as tkv
+    g = torch.Generator(device=cuda).manual_seed(5)
+    B, Hq, Hkv, Dh, S = 3, 8, 4, 64, 80
+    q = torch.randn((B, Hq, Dh), generator=g, device=cuda).to(dtype)
+    kq, ks = tkv.quantize_kv_rows(
+        torch.randn((B, Hkv, S, Dh), generator=g, device=cuda))
+    vq, vs = tkv.quantize_kv_rows(
+        torch.randn((B, Hkv, S, Dh), generator=g, device=cuda))
+    pos = torch.tensor([0, S - 1, 33], device=cuda)
+    args = (q, kq, ks, vq, vs, pos)
+    torch.testing.assert_close(tkv.decode_attention_kv_int8_cuda(*args),
+                               tkv.decode_attention_kv_int8_plain(*args),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("vec_merged", [False, True])
+def test_talker_merged_kernel_matches_plain_and_k3(cuda, vec_merged):
+    """K7 (merged weight streams, the qmm tile reading column blocks with
+    a row stride ldw != N) against its plain version and against K3 on
+    the same weights, bit for bit."""
+    from qwen3_tts_tpu_torch.ops.kernels import talker_merged as tm
+    B = 3
+    rng = np.random.default_rng(B)
+    layers = tm.with_merged(
+        quant.quantize_layer_stack(_stack(rng, TGEO, cuda), fuse=True))
+    g = torch.Generator(device=cuda).manual_seed(B)
+    x = torch.randn((B, TGEO.hidden_size), generator=g,
+                    device=cuda).bfloat16()
+    kv = torch.randn((TGEO.num_layers, 2, B, 64, 1, TGEO.head_dim),
+                     generator=g, device=cuda).bfloat16()
+    pos = torch.randint(1, 63, (B,), generator=g, device=cuda)
+    cos, sin = tfm.rope_cos_sin(torch.arange(64, device=cuda),
+                                TGEO.head_dim, TGEO.rope_theta)
+    args = (layers, x, pos, kv, cos, sin, 1e-6, vec_merged)
+    h_k, r_k = tm.talker_merged_cuda(*args)
+    h_p, r_p = tm.talker_merged_plain(*args)
+    h_3, r_3 = tts.talker_step_cuda(layers, x, pos, kv, cos, sin, 1e-6)
+    for a, b in ((h_k, h_p), (r_k, r_p), (h_k, h_3), (r_k, r_3)):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
