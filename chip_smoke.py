@@ -10,10 +10,10 @@
    weights): K1 qmatmul, K3 talker_step, K7 talker_step_merged (both
    variants, also against K3), K2 cp_decode, K5 decode_attention, K4
    paged_attention, K6 decode_attention_kv_int8, with the stated
-   tolerances; the
-   time of each beside its plain version's, its bound (bytes or
-   operations at the card's published peaks) and, where one PyTorch call
-   computes the same function, that call's time.
+   tolerances; the time of each beside its plain version's, its bound
+   (bytes or operations at the card's published peaks) and, where one
+   PyTorch call computes the same function, that call's time (K5 at the
+   four shapes of qwen3_tts_tpu_torch/tools/bench_decode_attention).
 3. Slice: TTSEngine(TTSConfig(), quantize="int8") synthesizes three short
    texts; each request must give codes in range, n_tokens * 1920 finite
    samples, and launch K1, K2 and K3.
@@ -46,7 +46,6 @@ from __future__ import annotations
 import itertools
 import json
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -68,32 +67,11 @@ def card_line() -> str:
     return res.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int, reps: int = 5, graph: bool = False) -> float:
-    """Median over ``reps`` of the mean CUDA-event time of ``iters``
-    back-to-back calls, after one warm-up call. ``graph=True`` captures
-    the calls in a CUDA graph and times its replay: the device time of a
-    call whose host side (Python, ctypes) takes longer than its kernels."""
-    import torch
-    fn()
-    torch.cuda.synchronize()
-    run = lambda: [fn() for _ in range(iters)]  # noqa: E731
-    if graph:
-        g = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(g):
-            run()
-        run = g.replay
-        run()
-        torch.cuda.synchronize()
-    vals = []
-    for _ in range(reps):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        run()
-        e.record()
-        e.synchronize()
-        vals.append(s.elapsed_time(e) / iters)
-    return statistics.median(vals)
+def time_ms(*args, **kw) -> float:
+    """qwen3_tts_tpu_torch.tools.time_ms (the checkout is on sys.path by
+    the time a phase runs)."""
+    from qwen3_tts_tpu_torch.tools import time_ms as timer
+    return timer(*args, **kw)
 
 
 def check(cond: bool, msg: str) -> None:
@@ -432,76 +410,70 @@ def _rel_err(got, ref) -> tuple:
 
 
 def phase_decode_attention(card: str) -> dict:
-    """K5 at the talker's geometry (Hq 16, Hkv 8, Dh 128, S 512) against
-    its plain version, f32 and bf16, B = 1 and 4, positions with 0 and
-    511; its time at B = 4 bf16 (the batcher's step) beside its bound and
-    scaled_dot_product_attention's time on the same inputs."""
+    """K5 at the talker's geometry (Hq 16, Hkv 8, Dh 128, S 512) and the
+    code predictor's cache length (S 16) against its plain version, f32
+    and bf16, B = 1, 4 and 8, positions 0, S-1 and on split boundaries
+    (error 0 expected: the plain version adds up in the kernel's order);
+    rows past pos poisoned change no bit. Then its time at the four
+    shapes of tools/bench_decode_attention (bf16, K/V from HBM: the
+    caches cycled read at least 3x the L2; CUDA-graph replay), each beside
+    its bound and scaled_dot_product_attention's time on the same
+    inputs."""
     import torch
-    import torch.nn.functional as F
     from qwen3_tts_tpu_torch.ops.kernels.decode_attention import (
-        decode_attention_cuda, decode_attention_plain)
+        NSPLIT, decode_attention_cuda, decode_attention_plain)
+    from qwen3_tts_tpu_torch.tools import bench_decode_attention
     g = torch.Generator(device="cuda").manual_seed(7)
-    S, worst = 512, 0.0
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
-        for B in (1, 4):
-            q, k, v = _attn_inputs(g, B, S, dtype)
-            pos = torch.tensor([0, S - 1, 200, 37][:B] if B > 1 else [S - 1],
-                               device="cuda")
-            ref = decode_attention_plain(q, k, v, pos)
-            got = decode_attention_cuda(q, k, v, pos)
-            torch.cuda.synchronize()
-            err, mx = _rel_err(got, ref)
-            print(f"K5 decode_attention {str(dtype)[6:]} B={B} pos="
-                  f"{pos.tolist()}: max_abs_err {err:.3e} (bound "
-                  f"{tol * mx:.3e})")
-            check(got.dtype == dtype and err <= tol * mx,
-                  f"K5 disagrees with its plain version ({dtype}, B={B})")
-            worst = max(worst, err)
-    B, dtype = 4, torch.bfloat16
-    q, k, v = _attn_inputs(g, B, S, dtype)
-    pos = torch.tensor([0, S - 1, 200, 37], device="cuda")
-    # 28 layers' caches, so the K/V come from HBM as in a decode step
-    ks = [k] + [k.clone() for _ in range(27)]
-    vs = [v] + [v.clone() for _ in range(27)]
-    it = itertools.cycle(range(28)).__next__
-
-    def k5():
-        i = it()
-        return decode_attention_cuda(q, ks[i], vs[i], pos)
-    t_k = time_ms(k5, 56, graph=True)
+    Hq, Hkv, Dh, worst = 16, 8, 128, 0.0
+    for S in (512, 16):
+        C = -(-S // NSPLIT)
+        for dtype in (torch.float32, torch.bfloat16):
+            for B in (1, 4, 8):
+                q, k, v = _attn_inputs(g, B, S, dtype)
+                pos = torch.tensor([S - 1] if B == 1 else
+                                   [0, S - 1, C - 1, C, 3 * C, 2 * C - 1,
+                                    S // 3, 1][:B], device="cuda")
+                ref = decode_attention_plain(q, k, v, pos)
+                got = decode_attention_cuda(q, k, v, pos)
+                torch.cuda.synchronize()
+                err, _ = _rel_err(got, ref)
+                print(f"K5 decode_attention {str(dtype)[6:]} S={S} B={B} pos="
+                      f"{pos.tolist()}: max_abs_err {err:.3e}")
+                check(got.dtype == dtype and err == 0,
+                      f"K5 disagrees with its plain version ({dtype}, S={S},"
+                      f" B={B})")
+                worst = max(worst, err)
+            a = decode_attention_cuda(q, k, v, pos)
+            for b, p in enumerate(pos.tolist()):
+                k[b, p + 1:] = 99.0
+                v[b, p + 1:] = -99.0
+            same = torch.equal(decode_attention_cuda(q, k, v, pos), a)
+            print(f"K5 S={S} {str(dtype)[6:]} B={B}: rows past pos poisoned "
+                  f"(+-99), output unchanged: {same}")
+            check(same, "K5 reads rows past pos")
+    shapes = bench_decode_attention.run()
+    for r in shapes:
+        print(f"  time {r['shape']} bf16 S=512: kernel {r['ms']:.5f} ms "
+              f"device (CUDA graph replay over {r['caches']} caches, "
+              f"{r['mb_read_a_cycle']:.0f} MB of K/V a cycle); bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}, "
+              f"{r['bound_ms'] / r['ms']:.1%} of it); SDPA (GQA, bool mask) "
+              f"{r['library_ms']:.5f} ms, max_abs_err vs K5 "
+              f"{r['sdpa_max_abs_err']:.3e}; K5 / SDPA "
+              f"{r['ms'] / r['library_ms']:.3f} [{card}]")
+    q, k, v = _attn_inputs(g, 4, 512, torch.bfloat16)
+    pos = torch.tensor(bench_decode_attention.SHAPES[0][2], device="cuda")
     t_p = time_ms(lambda: decode_attention_plain(q, k, v, pos), 2, 3)
-    rows = int((pos + 1).sum())
-    Hkv, Dh, Hq = 8, 128, 16
-    b_ms, b_by = least_time(nbytes(q, pos) + 2 * rows * Hkv * Dh * 2
-                       + q.numel() * 2, 4.0 * rows * (Hq // Hkv) * Hkv * Dh)
-    lib = None
-    try:
-        mask = (torch.arange(S, device="cuda")[None, :]
-                <= pos[:, None])[:, None, None, :]
-
-        def sdpa(i=None):
-            i = it() if i is None else i
-            return F.scaled_dot_product_attention(
-                q[:, :, None], ks[i].transpose(1, 2), vs[i].transpose(1, 2),
-                attn_mask=mask, enable_gqa=True)
-        lib_err, _ = _rel_err(sdpa(0).reshape(B, -1),
-                              decode_attention_cuda(q, ks[0], vs[0], pos))
-        lib = time_ms(sdpa, 56, graph=True)
-        print(f"  scaled_dot_product_attention (GQA, bool mask): "
-              f"{lib:.5f} ms, max_abs_err vs K5 {lib_err:.3e}")
-    except (RuntimeError, TypeError) as e:
-        print(f"  scaled_dot_product_attention: unavailable "
-              f"({str(e).splitlines()[0][:120]})")
-    del ks, vs
-    print(f"  time B=4 bf16 S={S}: kernel {t_k:.5f} ms device (CUDA graph "
-          f"replay, K/V from HBM), plain {t_p:.3f} ms; bound {b_ms:.5f} ms "
-          f"({b_by}: {rows} K/V rows) [{card}]")
+    print(f"  plain {shapes[0]['shape']}: {t_p:.3f} ms")
+    main = shapes[0]
     return {"name": "decode_attention", "route": "cuda",
             "source": "qwen3_tts_tpu_torch/csrc/decode_attention.cu",
             "replaces": "qwen3_tts_tpu/ops/pallas/decode_attention.py:85",
-            "max_abs_err": worst, "ms": t_k, "plain_ms": t_p,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-            "shape": f"B=4 Hq=16 Hkv=8 Dh=128 S={S} bf16"}
+            "max_abs_err": worst, "ms": main["ms"], "plain_ms": t_p,
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"],
+            "library_ms": main["library_ms"],
+            "shape": f"{main['shape']} Hq=16 Hkv=8 Dh=128 S=512 bf16",
+            "shapes": shapes}
 
 
 def phase_paged_attention(card: str) -> dict:
@@ -808,6 +780,14 @@ def profile_batcher_step(b, card: str) -> None:
                if str(e.device_type).endswith("CUDA")) / 1e3
     launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
     steps = b.decode_chunk
+    k5 = [e for e in ka if "decode_attn" in e.key
+          and str(e.device_type).endswith("CUDA")]
+    k5_ms = sum(e.self_device_time_total for e in k5) / 1e3
+    k5_n = sum(e.count for e in k5)
+    check(k5_n > 0, "batcher profile: no K5 kernel in the trace")
+    print(f"batcher profile: K5 (decode_attn_split_kernel) {k5_n} launches, "
+          f"{k5_ms:.4f} ms device, {k5_ms / steps:.4f} ms per loop step "
+          f"({k5_ms / k5_n * 1e3:.2f} us a launch) [{card}]")
     print(f"batcher profile: one scheduler step (4 admissions + "
           f"{steps} loop steps), wall {wall:.3f} s under the profiler, "
           f"device busy {busy:.1f} ms ({busy / steps:.2f} ms per loop "

@@ -153,3 +153,68 @@ def pv(p: torch.Tensor, v: torch.Tensor, n: int) -> torch.Tensor:
     for si in range(n):
         acc = fma(p[..., si, None], v[..., si, :], acc)
     return acc
+
+
+# ---------------------------------------------------------------------------
+# K5's reductions (csrc/decode_attention.cu): 8-wide lane chains for the
+# scores, a warp's strided chains for each sub-chunk's softmax sum, masked
+# P.V chains, and the ordered merge of partial softmaxes (a block's warps,
+# then the cluster's blocks).
+# ---------------------------------------------------------------------------
+
+ROW_VEC = 8           # elements of a lane's dot chain (DA_VEC)
+
+
+def row_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """sum(a * b) over the last dim D as K5's lane groups do it: D / 8
+    lanes, lane l an fma chain over elements 8l .. 8l + 7 in order, then
+    the xor butterfly over the D / 8 lanes (D / 8 a power of two)."""
+    a = a.unflatten(-1, (-1, ROW_VEC))
+    b = b.unflatten(-1, (-1, ROW_VEC))
+    acc = torch.zeros_like(a[..., 0])
+    for j in range(ROW_VEC):
+        acc = fma(a[..., j], b[..., j], acc)
+    return warp_sum(acc)
+
+
+def lane_sum(e: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim as one warp does it: lane j adds elements
+    j, j + 32, ... in order, then warp_sum."""
+    e = _pad_last(e, WARP).unflatten(-1, (-1, WARP))
+    t = e[..., 0, :]
+    for j in range(1, e.shape[-2]):
+        t = t + e[..., j, :]
+    return warp_sum(t)
+
+
+def pv_valid(e: torch.Tensor, v: torch.Tensor,
+             valid: torch.Tensor) -> torch.Tensor:
+    """out[..., d] = sum_s e[..., s] * v[..., s, d] over the positions
+    where ``valid`` holds, one fma chain per output in position order;
+    the other positions are not read. e (..., n); v (..., n, D); valid
+    broadcasts against e."""
+    acc = torch.zeros(torch.broadcast_shapes(e.shape[:-1] + (1,),
+                                             v.shape[:-2] + v.shape[-1:]),
+                      dtype=torch.float32, device=v.device)
+    for si in range(e.shape[-1]):
+        acc = torch.where(valid[..., si, None],
+                          fma(e[..., si, None], v[..., si, :], acc), acc)
+    return acc
+
+
+def merge_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                   live: torch.Tensor):
+    """K5's merge of partial softmaxes i over the ones where ``live``
+    holds: M = max m_i, w_i = exp(m_i - M), L = sum_i l_i * w_i and
+    O = sum_i w_i * o_i, each sum an fma chain in index order. m, l
+    (N, ...); o (N, ..., D); live broadcasts against m. Returns (M, L, O);
+    the attention is O / L."""
+    live = live.expand(m.shape)
+    M = torch.where(live, m, torch.full_like(m, -torch.inf)).amax(0)
+    L = torch.zeros_like(M)
+    O = torch.zeros_like(o[0])
+    for i in range(m.shape[0]):
+        w = torch.exp(m[i] - M)
+        L = torch.where(live[i], fma(l[i], w, L), L)
+        O = torch.where(live[i][..., None], fma(w[..., None], o[i], O), O)
+    return M, L, O

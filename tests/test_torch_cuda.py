@@ -123,18 +123,64 @@ def test_cp_decode_kernel_matches_plain(cuda, greedy):
                                atol=0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_decode_attention_kernel_matches_plain(cuda, dtype):
-    from qwen3_tts_tpu_torch.ops.kernels import decode_attention as tda
-    g = torch.Generator(device=cuda).manual_seed(3)
-    B, Hq, Hkv, Dh, S = 3, 8, 4, 64, 80
+# K5 cases (B, S, Hq, Hkv, Dh, pos): chunks of ceil(S / 8) positions, so
+# at S = 512 positions 63 / 64 and 127 / 128 sit on split boundaries; S =
+# 16 is the code predictor's cache (chunks of 2); S = 2048 walks an f32
+# chunk of 256 in tiles; G 2 at Dh 128 is the talker's (compile-time)
+# shape, at any S; every other G and Dh takes the generic instantiation
+K5_CASES = {
+    "B3-S80-G2-Dh64": (3, 80, 8, 4, 64, [0, 79, 33]),
+    "B1-S512": (1, 512, 16, 8, 128, [511]),
+    "B8-S512": (8, 512, 16, 8, 128, [0, 511, 63, 64, 127, 128, 200, 37]),
+    "B4-S16": (4, 16, 16, 8, 128, [0, 15, 1, 2]),
+    "B2-S2048-G8-Dh32": (2, 2048, 8, 1, 32, [2047, 700]),
+    "B2-S1000": (2, 1000, 16, 8, 128, [999, 125]),
+    "B2-S300-G4": (2, 300, 16, 4, 128, [299, 150]),
+    "B3-S100-G8": (3, 100, 16, 2, 128, [99, 0, 52]),
+    "B2-S64-G3": (2, 64, 12, 4, 64, [63, 9]),
+    "B2-S40-G6": (2, 40, 12, 2, 32, [39, 5]),
+}
+
+
+def _k5_inputs(cuda, dtype, case, seed=3):
+    B, S, Hq, Hkv, Dh, pos = K5_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(seed)
     q = torch.randn((B, Hq, Dh), generator=g, device=cuda).to(dtype)
     k = torch.randn((B, S, Hkv, Dh), generator=g, device=cuda).to(dtype)
     v = torch.randn((B, S, Hkv, Dh), generator=g, device=cuda).to(dtype)
-    pos = torch.tensor([0, S - 1, 33], device=cuda)
+    return q, k, v, torch.tensor(pos, device=cuda)
+
+
+@pytest.mark.parametrize("case", list(K5_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_matches_plain(cuda, dtype, case):
+    from qwen3_tts_tpu_torch.ops.kernels import decode_attention as tda
+    q, k, v, pos = _k5_inputs(cuda, dtype, case)
     torch.testing.assert_close(tda.decode_attention_cuda(q, k, v, pos),
                                tda.decode_attention_plain(q, k, v, pos),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("case", ["B8-S512", "B4-S16"])
+def test_decode_attention_kernel_takes_int32_and_int64_pos(cuda, case):
+    """The kernel reads pos as it comes (the decode loop keeps int32)."""
+    from qwen3_tts_tpu_torch.ops.kernels import decode_attention as tda
+    q, k, v, pos = _k5_inputs(cuda, torch.bfloat16, case, seed=6)
+    assert torch.equal(tda.decode_attention_cuda(q, k, v, pos.int()),
+                       tda.decode_attention_cuda(q, k, v, pos.long()))
+
+
+@pytest.mark.parametrize("case", ["B8-S512", "B4-S16"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_kernel_ignores_rows_past_pos(cuda, dtype, case):
+    """Rows past pos poisoned to +-99 change no bit of K5's output."""
+    from qwen3_tts_tpu_torch.ops.kernels import decode_attention as tda
+    q, k, v, pos = _k5_inputs(cuda, dtype, case, seed=8)
+    want = tda.decode_attention_cuda(q, k, v, pos)
+    for b, p in enumerate(pos.tolist()):
+        k[b, p + 1:] = 99.0
+        v[b, p + 1:] = -99.0
+    assert torch.equal(tda.decode_attention_cuda(q, k, v, pos), want)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
