@@ -13,7 +13,11 @@
    tolerances; the time of each beside its plain version's, its bound
    (bytes or operations at the card's published peaks) and, where one
    PyTorch call computes the same function, that call's time (K5 at the
-   four shapes of qwen3_tts_tpu_torch/tools/bench_decode_attention).
+   four shapes of qwen3_tts_tpu_torch/tools/bench_decode_attention). K2
+   at B = 1, 4 and 8: greedy tokens, the last step's logits and residual
+   row bit for bit, its product alone against qmm at every width of a
+   step, and its time, launches a step and per-kernel breakdown
+   (qwen3_tts_tpu_torch/tools/bench_cp_decode).
 3. Slice: TTSEngine(TTSConfig(), quantize="int8") synthesizes three short
    texts; each request must give codes in range, n_tokens * 1920 finite
    samples, and launch K1, K2 and K3.
@@ -244,38 +248,47 @@ def phase_talker_step(eng, card: str) -> dict:
 
 
 def phase_cp_decode(eng, card: str) -> dict:
+    """K2 on the engine's int8 code predictor against its plain version,
+    B = 1, 4 and 8: greedy, every token and the last step's logits and
+    residual row bit for bit; sampled (T 0.1, top-k 50), >= 99% of the
+    draws equal. Its product alone (qsplit) against qmm at every width of a
+    step, bit for bit. Then tools/bench_cp_decode: the time at B = 1, 4, 8
+    (CUDA-graph replay and eager), the weight rate, launches per call and
+    the per-kernel breakdown."""
     import torch
     from qwen3_tts_tpu_torch.models import transformer as tfm
+    from qwen3_tts_tpu_torch.ops.kernels.common import qmm
     from qwen3_tts_tpu_torch.ops.kernels.cp_decode import (cp_decode_cuda,
-                                                           cp_decode_plain)
+                                                           cp_decode_plain,
+                                                           qsplit)
+    from qwen3_tts_tpu_torch.tools import bench_cp_decode
     cfg = eng.cfg.code_predictor
     cpp = eng._cpp
     S = cfg.max_seq_len
     cos, sin = tfm.rope_cos_sin(torch.arange(S, device="cuda"),
                                 cfg.head_dim, cfg.rope_theta)
-    g = torch.Generator(device="cuda").manual_seed(5)
-    worst, t, steps, step_bytes, lay = 0, None, 0, 0, None
-    for B in (1, 4):
-        kv = torch.zeros((cfg.num_layers, 2, B, S, cfg.num_kv_heads,
-                          cfg.head_dim), device="cuda", dtype=torch.bfloat16)
-        kv[:, :, :, :2] = (torch.randn(kv[:, :, :, :2].shape, generator=g,
-                                       device="cuda") * 0.5).bfloat16()
-        tok0 = torch.randint(0, cfg.group_vocab_size, (B,), generator=g,
-                             device="cuda", dtype=torch.int32)
-        seeds = torch.randint(-2 ** 31, 2 ** 31 - 1, (B,), generator=g,
-                              device="cuda", dtype=torch.int32)
+    worst = 0.0
+    for B in (1, 4, 8):
+        kv, tok0, seeds = bench_cp_decode.inputs(cfg, B, seed=5 + B)
         kw = dict(eps=cfg.rms_norm_eps, top_k=50)
-        ref = cp_decode_plain(cpp, tok0, kv, cos, sin, seeds,
-                              temperature=0.0, greedy=True, **kw)
-        got = cp_decode_cuda(cpp, tok0, kv, cos, sin, seeds,
-                             temperature=0.0, greedy=True, **kw)
+        ref, ref_lg, ref_x = cp_decode_plain(cpp, tok0, kv, cos, sin, seeds,
+                                             temperature=0.0, greedy=True,
+                                             scratch=True, **kw)
+        got, got_lg, got_x = cp_decode_cuda(cpp, tok0, kv, cos, sin, seeds,
+                                            temperature=0.0, greedy=True,
+                                            scratch=True, **kw)
         torch.cuda.synchronize()
         n_bad = int((got != ref).sum())
+        lg_err = float((got_lg - ref_lg).abs().max())
+        x_err = float((got_x.float() - ref_x.float()).abs().max())
+        same = torch.equal(got_lg, ref_lg) and torch.equal(got_x, ref_x)
         print(f"K2 cp_decode B={B} greedy: {n_bad} of {got.numel()} tokens "
-              f"differ")
+              f"differ; last step's logits max_abs_err {lg_err:.3e}, "
+              f"residual row {x_err:.3e}; bit-equal: {same}")
         check(n_bad == 0, f"K2 greedy tokens differ from the plain version "
                           f"(B={B}):\n{got.tolist()}\n{ref.tolist()}")
-        worst = max(worst, int((got.long() - ref.long()).abs().max()))
+        check(same, f"K2 logits or residual row differ (B={B})")
+        worst = max(worst, lg_err, x_err)
         agree, total = 0, 0
         for trial in range(4):
             sd = seeds + trial * 7919
@@ -288,41 +301,55 @@ def phase_cp_decode(eng, card: str) -> dict:
         print(f"K2 cp_decode B={B} sampled (T=0.1, top-k 50): "
               f"{total - agree} of {total} draws differ")
         check(agree >= 0.99 * total, "K2 sampled draws disagree (< 99%)")
-        if B == 1:
-            def k2():
-                return cp_decode_cuda(cpp, tok0, kv, cos, sin, seeds,
-                                      temperature=0.1, greedy=False, **kw)
-            t = (time_ms(k2, 10, graph=True),
-                 time_ms(lambda: cp_decode_plain(
-                    cpp, tok0, kv, cos, sin, seeds, temperature=0.1,
-                    greedy=False, **kw), 2, 3))
-            t_call = time_ms(k2, 10)
-            # bytes the 14 steps must read: per step the int8 layer stack,
-            # one lm_head and the bf16 mtp projection
-            lay = cpp["layers"]
-            step_bytes = (sum(lay[n].q.numel() + 4 * lay[n].scale.numel()
-                              for n in ("q_proj", "k_proj", "v_proj",
-                                        "o_proj", "gate_proj", "up_proj",
-                                        "down_proj"))
-                          + cpp["lm_heads"][1].q.numel()
-                          + 4 * cpp["lm_heads"][1].scale.numel()
-                          + cpp["mtp_proj_w"].numel()
-                          * cpp["mtp_proj_w"].element_size())
-            steps = cfg.num_groups - 1
-            gbs = steps * step_bytes / t[0] / 1e6
-            print(f"  time B=1 ({steps} steps): kernel {t[0]:.4f} ms device "
-                  f"(CUDA graph replay; {gbs:.0f} GB/s of weights), "
-                  f"{t_call:.4f} ms per eager call, plain "
-                  f"{t[1]:.4f} ms [{card}]")
+    # the product alone at each width of a step, clusters sized as there:
+    # mtp, k, v (1024, 1024) and o (2048, 1024), down (3072, 1024) in
+    # clusters of 8; q, head (1024, 2048) and gate, up (1024, 3072) of 4;
+    # q|k|v (1024, 4096) and gate|up (1024, 6144) of 2
+    g = torch.Generator(device="cuda").manual_seed(9)
+    n_case = 0
+    widths = ((1024, 1024), (1024, 2048), (2048, 1024), (1024, 3072),
+              (3072, 1024), (1024, 4096), (1024, 6144))
+    for K, N in widths:
+        w = torch.randint(-127, 128, (K, N), generator=g, device="cuda",
+                          dtype=torch.int8)
+        sc = torch.rand((N,), generator=g, device="cuda") * 0.01 + 1e-3
+        for R in (1, 4, 8):
+            x = torch.randn((R, K), generator=g, device="cuda").bfloat16()
+            check(torch.equal(qsplit(x, w, sc), qmm(x, w, sc)),
+                  f"qsplit ({R},{K})x({K},{N}) != qmm")
+            n_case += 1
+    print(f"K2 product (qsplit) against qmm: {n_case} cases "
+          f"({len(widths)} widths, R 1/4/8, clusters of 2, 4 and 8), all "
+          f"bit-equal")
+
+    lay = cpp["layers"]
+    steps = cfg.num_groups - 1
+    kv, tok0, seeds = bench_cp_decode.inputs(cfg, 1, seed=6)
+    t_p = time_ms(lambda: cp_decode_plain(
+        cpp, tok0, kv, cos, sin, seeds, eps=cfg.rms_norm_eps, top_k=50,
+        temperature=0.1, greedy=False), 2, 3)
+    rows = bench_cp_decode.run()
+    for r in rows:
+        print(f"  time B={r['B']} ({steps} steps): kernel {r['ms']:.4f} ms "
+              f"device (CUDA graph replay; {r['weight_gb_s']:.0f} GB/s of "
+              f"weights; streaming bound {r['bound_streaming_ms']:.4f} ms), "
+              f"{r['eager_ms']:.4f} ms per eager call; "
+              f"{r['launches_per_call']:.0f} launches a call "
+              f"({r['launches_per_step']:.2f} a step) [{card}]")
+        for k, v in r["kernels"].items():
+            print(f"    {k}: {v['launches']:g} launches, {v['ms']:.4f} ms a "
+                  f"call")
+    print(f"  plain version B=1: {t_p:.4f} ms per eager call [{card}]")
+    check(all(r["launches_per_step"] <= 28.5 for r in rows),
+          "K2 launches more than 28 kernels a step")
     # bound (B=1): every input once -- the int8 stack and its scales, the
     # 14 lm_heads used, the mtp projection, the norms, the prefill K/V
     # rows, one embedding row per step -- and the tokens written. (Each
-    # step streams the stack again in the kernel, 14 x step_bytes: the
-    # stack exceeds the L2.)
+    # step streams the stack again in the kernel, 14 x the step's bytes:
+    # the stack exceeds the L2.)
     heads = cpp["lm_heads"]
     once = (sum(lay[n].q.numel() + 4 * lay[n].scale.numel()
-                for n in ("q_proj", "k_proj", "v_proj", "o_proj",
-                          "gate_proj", "up_proj", "down_proj"))
+                for n in bench_cp_decode.PROJ)
             + steps * (heads.q[1].numel() + 4 * heads.scale[1].numel())
             + nbytes(cpp["mtp_proj_w"], cpp["mtp_proj_b"],
                      cpp["final_norm"], *[lay[n] for n in (
@@ -331,13 +358,14 @@ def phase_cp_decode(eng, card: str) -> dict:
             + steps * cfg.hidden_size * 2 + steps * 4)
     b_ms, b_by = least_time(once)
     print(f"  bound B=1: {b_ms:.4f} ms ({b_by}; inputs once); streaming the "
-          f"stack per step: {steps * step_bytes / HBM_BYTES_PER_S * 1e3:.4f}"
-          f" ms [{card}]")
+          f"stack per step: {rows[0]['bound_streaming_ms']:.4f} ms [{card}]")
     return {"name": "cp_decode", "route": "cuda",
             "source": "qwen3_tts_tpu_torch/csrc/cp_decode.cu",
             "replaces": "qwen3_tts_tpu/ops/pallas/cp_decode.py:365",
-            "max_abs_err": worst, "ms": t[0], "plain_ms": t[1],
+            "max_abs_err": worst, "ms": rows[0]["ms"], "plain_ms": t_p,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "ms_b4": rows[1]["ms"], "ms_b8": rows[2]["ms"],
+            "launches_per_step": rows[0]["launches_per_step"],
             "shape": "B=1, 14 steps, 5 layers"}
 
 
@@ -373,10 +401,12 @@ def phase_slice(eng, card: str, counters: dict) -> dict:
 
 
 def phase_profile(eng, card: str) -> None:
-    """One more request under torch.profiler: device time by kernel (the
-    launch counts of the checked requests are read before it)."""
+    """One more request under torch.profiler: device busy time (the union
+    of the kernels' intervals), device time by kernel (the launch counts
+    of the checked requests are read before it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+    from qwen3_tts_tpu_torch.tools import bench_e2e
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
@@ -385,14 +415,13 @@ def phase_profile(eng, card: str) -> None:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     ka = prof.key_averages()
-    # device-side events only (an aten op also carries its kernels' time)
-    busy = sum(e.self_device_time_total for e in ka
-               if str(e.device_type).endswith("CUDA")) / 1e3
-    launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
+    busy, launches = bench_e2e.device_busy_ms(prof), bench_e2e.launches(prof)
+    summed = bench_e2e.device_sum_ms(prof)
     n = max(res.n_tokens, 1)
     print(f"profile: {res.n_tokens} tokens, wall {wall:.3f} s under the "
-          f"profiler, device busy {busy:.1f} ms ({busy / n:.2f} ms/token), "
-          f"{launches} kernel launches ({launches / n:.0f}/token) [{card}]")
+          f"profiler, device busy {busy:.1f} ms ({busy / n:.2f} ms/token; "
+          f"sum of kernel times {summed:.1f} ms), {launches} kernel "
+          f"launches ({launches / n:.0f}/token) [{card}]")
     print(ka.table(sort_by="self_device_time_total", row_limit=15,
                    max_name_column_width=50))
 
@@ -706,27 +735,19 @@ def phase_kv_int8(card: str) -> dict:
             "shape": f"B=4 Hq=16 Hkv=8 Dh=128 S={S} int8 KV, bf16 q"}
 
 
-def _encode(text: str):
-    """Byte-fallback ids padded to the engine's text bucket."""
-    import numpy as np
-    from qwen3_tts_tpu_torch.engine.engine import _bucket
-    raw = list(text.encode("utf-8"))
-    ids = np.zeros((_bucket(len(raw)),), np.int32)
-    ids[:len(raw)] = raw
-    return ids, len(raw)
-
-
 def _serve(b, card: str, label: str, counters: dict):
     """Serve BATCH_TEXTS through batcher b (step() driven), with the
     counters set to 0 before and read after. Returns (codes per request,
     launches)."""
     import numpy as np
     import torch
+    from qwen3_tts_tpu_torch.tools import bench_e2e
     for fn in counters.values():
         fn.launches = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    futs = [b.submit(*_encode(t), seed=i) for i, t in enumerate(BATCH_TEXTS)]
+    futs = [b.submit(*bench_e2e.encode_text(t), seed=i)
+            for i, t in enumerate(BATCH_TEXTS)]
     steps = 0
     while not all(f.done() for f in futs):
         check(steps < 400, f"{label}: requests not done after 400 steps")
@@ -766,7 +787,8 @@ def profile_batcher_step(b, card: str) -> None:
     that take it; the requests are then drained outside the profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    futs = [b.submit(*_encode(t), seed=i)
+    from qwen3_tts_tpu_torch.tools import bench_e2e
+    futs = [b.submit(*bench_e2e.encode_text(t), seed=i)
             for i, t in enumerate(BATCH_TEXTS[:4])]
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -776,9 +798,8 @@ def profile_batcher_step(b, card: str) -> None:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     ka = prof.key_averages()
-    busy = sum(e.self_device_time_total for e in ka
-               if str(e.device_type).endswith("CUDA")) / 1e3
-    launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
+    busy, launches = bench_e2e.device_busy_ms(prof), bench_e2e.launches(prof)
+    summed = bench_e2e.device_sum_ms(prof)
     steps = b.decode_chunk
     k5 = [e for e in ka if "decode_attn" in e.key
           and str(e.device_type).endswith("CUDA")]
@@ -791,8 +812,8 @@ def profile_batcher_step(b, card: str) -> None:
     print(f"batcher profile: one scheduler step (4 admissions + "
           f"{steps} loop steps), wall {wall:.3f} s under the profiler, "
           f"device busy {busy:.1f} ms ({busy / steps:.2f} ms per loop "
-          f"step), {launches} kernel launches ({launches / steps:.0f} per "
-          f"loop step) [{card}]")
+          f"step; sum of kernel times {summed:.1f} ms), {launches} kernel "
+          f"launches ({launches / steps:.0f} per loop step) [{card}]")
     print(ka.table(sort_by="self_device_time_total", row_limit=12,
                    max_name_column_width=50))
     while not all(f.done() for f in futs):

@@ -1,10 +1,11 @@
 """Command line: synthesize one text to a WAV file with the PyTorch port.
 
     python -m qwen3_tts_tpu_torch.cli "text" --output out.wav --seed 0 \
-        --quantize int8 [--device cuda]
+        [--quantize none|int8] [--device cuda]
 
-Random weights (no checkpoint loading yet); prints the per-stage timings
-and the real-time factor."""
+Random weights (no checkpoint loading yet); bf16 unless ``--quantize
+int8``, as the JAX package's CLI; prints the per-stage timings and the
+real-time factor."""
 
 from __future__ import annotations
 
@@ -13,7 +14,7 @@ import argparse
 from qwen3_tts_tpu_torch.config import SUPPORTED_LANGUAGES
 
 
-def main(argv=None) -> int:
+def parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("text")
     ap.add_argument("--output", default="output.wav")
@@ -21,9 +22,13 @@ def main(argv=None) -> int:
                     choices=SUPPORTED_LANGUAGES)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--max_tokens", type=int, default=None)
-    ap.add_argument("--quantize", choices=("none", "int8"), default="int8")
+    ap.add_argument("--quantize", choices=("none", "int8"), default="none")
     ap.add_argument("--device", default="cuda")
-    args = ap.parse_args(argv)
+    return ap
+
+
+def main(argv=None) -> int:
+    args = parser().parse_args(argv)
 
     from qwen3_tts_tpu_torch.engine.engine import TTSEngine
 

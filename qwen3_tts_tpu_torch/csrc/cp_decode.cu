@@ -6,23 +6,38 @@
 //
 // Each step i: embed the previous token with codec_embs[i] (exact row
 // gather) -> bf16 mtp projection + f32 bias -> 5 int8 layers -> final
-// RMSNorm -> int8 lm_heads[i+1] -> top-k keep set by a 32-step bitwise
-// threshold search -> hash-PRNG Gumbel-max (greedy: first-index argmax).
-// Precision points differ from K3: the residual x is bf16 and the
-// residual adds happen in bf16; the KV cache and attention are f32.
-// The sampling reproduces sample_tokens bit for bit in its integer part
-// (sortable-uint transform, threshold search, murmur-style hash).
+// RMSNorm -> int8 lm_heads[i+1] -> top-k keep set -> hash-PRNG Gumbel-max
+// (greedy: first-index argmax). Precision points differ from K3: the
+// residual x is bf16 and the residual adds happen in bf16; the KV cache
+// and attention are f32. The sampling reproduces sample_tokens bit for bit
+// in its integer part (sortable-uint transform, k-th largest key, murmur-
+// style hash).
 //
 // Bound on an H100: each step streams the int8 layer stack (5 layers x
 // 15.7 MB at the 0.6B geometry), one 2.1 MB lm_head and the 2.1 MB bf16
-// mtp projection, 83 MB a step and 1.16 GB a token; at ~2 flops per
-// weight byte that is far below the tensor-core limit, so the kernel is
-// bound by HBM bandwidth. The TPU kernel kept the whole stack in on-chip
-// memory for all 14 steps; on the H100 the stack plus the heads (110 MB)
-// exceeds the 50 MB L2, so each step streams the weights again.
-// The design reads every weight byte once per step in int8 (the qmm tiles
-// of common.cuh) and keeps the f32 KV (16 rows) in device memory. A step
-// is a fixed sequence of launches (embed, 8 per layer, head, sample).
+// mtp projection, 83 MB a step and 1.16 GB a call (0.347 ms at 3.35 TB/s);
+// at ~2 flops per weight byte that is far below the tensor-core limit, so
+// the bytes bound it. The TPU kernel kept the whole stack in on-chip memory
+// for all 14 steps; on the H100 the stack plus the heads (110 MB) exceeds
+// the 50 MB L2, so each step streams the weights again.
+//
+// Design. A step is 28 launches: the embed product, 5 a layer (q|k|v,
+// attention, o, gate|up, down), the head product and the sampler. Each
+// product is one qsplit launch (common.cuh): 64-column tiles, the k-slice
+// groups of a tile split over a cluster of 2-8 blocks so that every
+// product has >= 128 blocks, 16-byte weight copies issued before the
+// previous kernel is waited for (programmatic dependent launch: the weight
+// stream of a product overlaps the kernel before it), the input rows read
+// once, and the group sums combined in order through distributed shared
+// memory; q|k|v and gate|up are one launch each over the three (two)
+// weights. Each keeps the summation order of common.cuh, so K2 stays
+// bit-equal to its plain version (ops/kernels/cp_decode.cp_decode_plain).
+// launch_qsplit picks each product's cluster size from its tiles. The
+// attention kernel is one block per (query head, row); the sampler one
+// block per row, whose top-k threshold is a radix select (4 rounds of 8
+// bits) of the k-th largest sort key. The f32 KV (16 rows) stays in
+// device memory. Times and the per-kernel breakdown: PERF.md
+// (qwen3_tts_tpu_torch/tools/bench_cp_decode).
 #include "common.cuh"
 
 namespace {
@@ -48,6 +63,8 @@ cp_attn_kernel(const float* qb, const float* kb, const float* vb,
   const int G = nH / nKV, h = hq / G;
   const int QD = nH * Dh, KVD = nKV * Dh;
   const bool act = d < Dh;
+  grid_dep_wait();    // q|k|v are written
+  grid_dep_launch();  // the o product may start its weight copies
   const float c = act ? cos_t[(long)p * Dh + d] : 0.f;
   const float s = act ? sin_t[(long)p * Dh + d] : 0.f;
 
@@ -109,30 +126,29 @@ __device__ __forceinline__ uint32_t sort_key(float f) {
   return bits ^ ((bits >> 31) ? 0xFFFFFFFFu : 0x80000000u);
 }
 
-__device__ int block_count(int v, int* ired) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  v = __reduce_add_sync(0xffffffffu, v);
-  __syncthreads();
-  if (lane == 0) ired[w] = v;
-  __syncthreads();
-  int t = 0;
-  for (int i = 0; i < (int)(blockDim.x >> 5); ++i) t += ired[i];
-  return t;
-}
+constexpr int SAMPLE_BINS = 256;  // 8 bits a radix round
 
 // one block per row: top-k threshold, hash-PRNG Gumbel-max, first-index
-// argmax (greedy: argmax of the logits)
+// argmax (greedy: argmax of the logits). The threshold is the k-th largest
+// sort key (what topk_keep_mask's 32-step bitwise search finds: the
+// largest T with count(key >= T) >= k), found by a radix select: 4 rounds,
+// each a 256-bin histogram of the next 8 bits of the keys that share the
+// bits chosen so far, then a suffix scan that picks the bin holding the
+// k-th largest and the rank left within it.
 __global__ void __launch_bounds__(SAMPLE_THREADS)
 cp_sample_kernel(const float* logits, int V, const int* seeds, int step,
                  int top_k, int greedy, float inv_t, int* tok_cur,
                  int* out, int B) {
-  __shared__ int ired[32];
+  __shared__ int hist[SAMPLE_BINS];
+  __shared__ int pick[2];  // the chosen bin, the rank left within it
   __shared__ float rv[32];
   __shared__ int ri[32];
-  const int b = blockIdx.x, t = threadIdx.x;
+  const int b = blockIdx.x, t = threadIdx.x, lane = t & 31;
+  grid_dep_wait();    // the head's logits are written
+  grid_dep_launch();  // the next step's embed may start its weight copies
   const float* row = logits + (long)b * V;
   // this thread's logits i = t + j * SAMPLE_THREADS, kept in registers
-  // with their sort keys (0 past V: no candidate threshold is <= 0)
+  // with their sort keys
   float lv[SAMPLE_PER];
   uint32_t key[SAMPLE_PER];
 #pragma unroll
@@ -143,12 +159,52 @@ cp_sample_kernel(const float* logits, int V, const int* seeds, int step,
   }
   uint32_t thr = 0;
   if (!greedy) {
-    for (int bit = 0; bit < 32; ++bit) {
-      const uint32_t cand = thr | (0x80000000u >> bit);
-      int cnt = 0;
+    int kk = top_k;  // rank of the wanted key among the candidates
+    for (int round = 0; round < 4; ++round) {
+      const int shift = 24 - 8 * round;
+      // keys whose bits above this round's byte equal thr's are candidates
+      const uint32_t hi = round ? 0xFFFFFFFFu << (shift + 8) : 0u;
+      for (int i = t; i < SAMPLE_BINS; i += SAMPLE_THREADS) hist[i] = 0;
+      __syncthreads();
 #pragma unroll
-      for (int j = 0; j < SAMPLE_PER; ++j) cnt += key[j] >= cand;
-      if (block_count(cnt, ired) >= top_k) thr = cand;
+      for (int j = 0; j < SAMPLE_PER; ++j) {
+        const int i = t + j * SAMPLE_THREADS;
+        const bool cand = i < V && (key[j] & hi) == thr;
+        const int d = cand ? (int)((key[j] >> shift) & 255u) : -1;
+        // one shared atomic per distinct bin of the warp
+        const unsigned same = __match_any_sync(0xffffffffu, d);
+        if (cand && lane == __ffs(same) - 1) atomicAdd(&hist[d], __popc(same));
+      }
+      __syncthreads();
+      if (t < 32) {
+        // lane l holds bins 8l .. 8l+7; count(digit >= d) from the top
+        int h[8], tot = 0;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) { h[q] = hist[8 * lane + q]; tot += h[q]; }
+        int incl = tot;  // keys in the bins of lanes >= l
+#pragma unroll
+        for (int o = 1; o < 32; o <<= 1) {
+          const int v = __shfl_down_sync(0xffffffffu, incl, o);
+          if (lane + o < 32) incl += v;
+        }
+        // the largest bin d with count(digit >= d) >= kk, and count(digit
+        // > d); the counts grow as d falls, so it is in the highest lane
+        // that has one
+        int run = incl - tot, best = -1, above = 0;
+#pragma unroll
+        for (int q = 7; q >= 0; --q) {
+          if (best < 0 && run + h[q] >= kk) {
+            best = 8 * lane + q;
+            above = run;
+          }
+          run += h[q];
+        }
+        const unsigned has = __ballot_sync(0xffffffffu, best >= 0);
+        if (lane == 31 - __clz(has)) { pick[0] = best; pick[1] = kk - above; }
+      }
+      __syncthreads();
+      thr |= (uint32_t)pick[0] << shift;
+      kk = pick[1];
     }
   }
   const uint32_t seed = (uint32_t)seeds[b];
@@ -198,10 +254,25 @@ cp_sample_kernel(const float* logits, int V, const int* seeds, int step,
   }
 }
 
-template <typename WD>
-cudaError_t embed(QmmArgs a, cudaStream_t st) {
-  return launch_qmm<PRO_GATHER, WD, EPI_STORE_BF16>(a, st);
-}
+// one qsplit product of rows x (R, K) through up to three weights
+struct Product {
+  QsArgs a;
+  Product(int B, int K, float eps) : a() {
+    a.R = B; a.K = K; a.eps = eps;
+  }
+  Product& rows(const void* x, int x_bf16, int ldx) {
+    a.x = x; a.x_bf16 = x_bf16; a.ldx = ldx;
+    return *this;
+  }
+  Product& norm(const void* nw, int nw_bf16) {
+    a.nw = nw; a.nw_bf16 = nw_bf16;
+    return *this;
+  }
+  Product& seg(const void* w, const float* scale, void* out, int ldo, int N) {
+    a.seg[a.nseg++] = QsSeg{w, scale, nullptr, out, ldo, N};
+    return *this;
+  }
+};
 
 }  // namespace
 
@@ -225,7 +296,7 @@ extern "C" int q3_cp_decode(
   const float eps = host_float(eps_bits);
   const float scale = host_float(scale_bits);
   const float inv_t = host_float(inv_t_bits);
-  if (B < 1 || B > QMM_RT || Dh > ATT_THREADS || Dh % 2 || n_steps + 2 > S ||
+  if (B < 1 || B > QS_MAXR || Dh > ATT_THREADS || Dh % 2 || n_steps + 2 > S ||
       V > SAMPLE_THREADS * SAMPLE_PER)
     return (int)cudaErrorInvalidValue;
   const int QD = nH * Dh, KVD = nKV * Dh;
@@ -234,71 +305,76 @@ extern "C" int q3_cp_decode(
   const size_t att_smem = (3 * Dh + 32 + S) * sizeof(float);
 
   Q3_TRY(launch_convert(kv, kv_bf16, kvbuf, 0, 0, L * kv_layer, st));
-  Q3_TRY(cudaMemcpyAsync(tok_cur, tok0, B * sizeof(int),
-                         cudaMemcpyDeviceToDevice, st));
   for (int i = 0; i < n_steps; ++i) {
     const int p = i + 2;  // the 2-token prefill holds positions 0, 1
-    QmmArgs a = {};
-    a.eps = eps; a.R = B;
-    a.x = (const char*)embs + (long)i * V * H * embsz; a.x_bf16 = emb_bf16;
-    a.tok = tok_cur; a.K = H; a.ldx = H;
-    a.w = mtp_w; a.bias = mtp_b; a.bias_bf16 = mtp_bf16;
-    a.out = xbuf; a.ldo = H; a.N = H; a.ldw = H;
-    Q3_TRY(mtp_bf16 ? embed<__nv_bfloat16>(a, st) : embed<float>(a, st));
+    // x = bf16(embs[i][tok] @ mtp_w + mtp_b); step 0 gathers tok0
+    Product e(B, H, eps);
+    e.rows((const char*)embs + (long)i * V * H * embsz, emb_bf16, H);
+    e.a.tok = i ? tok_cur : tok0;
+    e.seg(mtp_w, nullptr, xbuf, H, H);
+    e.a.seg[0].bias = mtp_b;
+    e.a.bias_bf16 = mtp_bf16;
+    Q3_TRY(mtp_bf16 ? (launch_qsplit<PRO_GATHER, __nv_bfloat16,
+                                     EPI_STORE_BF16>(e.a, st))
+                    : (launch_qsplit<PRO_GATHER, float, EPI_STORE_BF16>(
+                          e.a, st)));
 
     for (int l = 0; l < L; ++l) {
       const void* in_ln = (const char*)input_ln + l * H * esz;
       const void* po_ln = (const char*)post_ln + l * H * esz;
-      const int8_t* wq[3] = {q_q + (long)l * H * QD, k_q + (long)l * H * KVD,
-                             v_q + (long)l * H * KVD};
-      const float* ws[3] = {q_s + (long)l * QD, k_s + (long)l * KVD,
-                            v_s + (long)l * KVD};
-      float* outs[3] = {q_buf, k_buf, v_buf};
-      const int ns[3] = {QD, KVD, KVD};
-      for (int j = 0; j < 3; ++j) {
-        a = QmmArgs{}; a.eps = eps; a.R = B;
-        a.x = xbuf; a.x_bf16 = 1; a.ldx = H; a.nw = in_ln;
-        a.nw_bf16 = nw_bf16; a.w = wq[j]; a.scale = ws[j];
-        a.out = outs[j]; a.ldo = ns[j]; a.K = H; a.N = ns[j]; a.ldw = ns[j];
-        Q3_TRY((launch_qmm<PRO_RMS, int8_t, EPI_STORE_F32>(a, st)));
-      }
-      cp_attn_kernel<<<dim3(nH, B), ATT_THREADS, att_smem, st>>>(
-          q_buf, k_buf, v_buf, (const char*)q_norm + l * Dh * esz,
-          (const char*)k_norm + l * Dh * esz, nw_bf16, cos_t, sin_t,
-          kvbuf + l * kv_layer, p, attn_buf, B, S, nH, nKV, Dh, eps, scale);
-      Q3_TRY(cudaGetLastError());
+      Product qkv(B, H, eps);
+      qkv.rows(xbuf, 1, H).norm(in_ln, nw_bf16)
+          .seg(q_q + (long)l * H * QD, q_s + (long)l * QD, q_buf, QD, QD)
+          .seg(k_q + (long)l * H * KVD, k_s + (long)l * KVD, k_buf, KVD, KVD)
+          .seg(v_q + (long)l * H * KVD, v_s + (long)l * KVD, v_buf, KVD, KVD);
+      Q3_TRY((launch_qsplit<PRO_RMS, int8_t, EPI_STORE_F32>(qkv.a, st)));
 
-      a = QmmArgs{}; a.eps = eps; a.R = B;
-      a.x = attn_buf; a.x_bf16 = 1; a.ldx = QD;
-      a.w = o_q + (long)l * QD * H; a.scale = o_s + (long)l * H;
-      a.out = xbuf; a.ldo = H; a.K = QD; a.N = H; a.ldw = H;
-      Q3_TRY((launch_qmm<PRO_PLAIN, int8_t, EPI_ADD_BF16>(a, st)));
+      Q3_TRY(launch_pdl(cp_attn_kernel, dim3(nH, B), dim3(ATT_THREADS),
+                        att_smem, st, 0, (const float*)q_buf,
+                        (const float*)k_buf, (const float*)v_buf,
+                        (const void*)((const char*)q_norm + l * Dh * esz),
+                        (const void*)((const char*)k_norm + l * Dh * esz),
+                        nw_bf16, cos_t, sin_t, kvbuf + l * kv_layer, p,
+                        attn_buf, B, S, nH, nKV, Dh, eps, scale));
 
-      const int8_t* gw[2] = {g_q + (long)l * H * I, u_q + (long)l * H * I};
-      const float* gs[2] = {g_s + (long)l * I, u_s + (long)l * I};
-      for (int j = 0; j < 2; ++j) {
-        a = QmmArgs{}; a.eps = eps; a.R = B;
-        a.x = xbuf; a.x_bf16 = 1; a.ldx = H; a.nw = po_ln;
-        a.nw_bf16 = nw_bf16; a.w = gw[j]; a.scale = gs[j];
-        a.out = gu_buf + j * I; a.ldo = 2 * I; a.K = H; a.N = I; a.ldw = I;
-        Q3_TRY((launch_qmm<PRO_RMS, int8_t, EPI_STORE_F32>(a, st)));
-      }
-      a = QmmArgs{}; a.eps = eps; a.R = B;
-      a.x = gu_buf; a.x_bf16 = 0; a.ldx = 2 * I;
-      a.w = d_q + (long)l * I * H; a.scale = d_s + (long)l * H;
-      a.out = xbuf; a.ldo = H; a.K = I; a.N = H; a.ldw = H;
-      Q3_TRY((launch_qmm<PRO_SWIGLU, int8_t, EPI_ADD_BF16>(a, st)));
+      Product o(B, QD, eps);
+      o.rows(attn_buf, 1, QD)
+          .seg(o_q + (long)l * QD * H, o_s + (long)l * H, xbuf, H, H);
+      Q3_TRY((launch_qsplit<PRO_PLAIN, int8_t, EPI_ADD_BF16>(o.a, st)));
+
+      Product gu(B, H, eps);
+      gu.rows(xbuf, 1, H).norm(po_ln, nw_bf16)
+          .seg(g_q + (long)l * H * I, g_s + (long)l * I, gu_buf, 2 * I, I)
+          .seg(u_q + (long)l * H * I, u_s + (long)l * I, gu_buf + I, 2 * I, I);
+      Q3_TRY((launch_qsplit<PRO_RMS, int8_t, EPI_STORE_F32>(gu.a, st)));
+
+      Product dn(B, I, eps);
+      dn.rows(gu_buf, 0, 2 * I)
+          .seg(d_q + (long)l * I * H, d_s + (long)l * H, xbuf, H, H);
+      Q3_TRY((launch_qsplit<PRO_SWIGLU, int8_t, EPI_ADD_BF16>(dn.a, st)));
     }
-    a = QmmArgs{}; a.eps = eps; a.R = B;
-    a.x = xbuf; a.x_bf16 = 1; a.ldx = H; a.nw = final_norm;
-    a.nw_bf16 = nw_bf16; a.w = head_q + (long)(i + 1) * H * V;
-    a.scale = head_s + (long)(i + 1) * V;
-    a.out = logits; a.ldo = V; a.K = H; a.N = V; a.ldw = V;
-    Q3_TRY((launch_qmm<PRO_RMS, int8_t, EPI_STORE_F32>(a, st)));
+    Product hd(B, H, eps);
+    hd.rows(xbuf, 1, H).norm(final_norm, nw_bf16)
+        .seg(head_q + (long)(i + 1) * H * V, head_s + (long)(i + 1) * V,
+             logits, V, V);
+    Q3_TRY((launch_qsplit<PRO_RMS, int8_t, EPI_STORE_F32>(hd.a, st)));
 
-    cp_sample_kernel<<<B, SAMPLE_THREADS, 0, st>>>(
-        logits, V, seeds, i, top_k, greedy, inv_t, tok_cur, out, B);
-    Q3_TRY(cudaGetLastError());
+    Q3_TRY(launch_pdl(cp_sample_kernel, dim3(B), dim3(SAMPLE_THREADS), 0, st,
+                      0, (const float*)logits, V, seeds, i, top_k, greedy,
+                      inv_t, tok_cur, out, B));
   }
   return 0;
+}
+
+// One qsplit product alone -- rows x (R, K) bf16 or f32, plain prologue,
+// int8 w (K, N), f32 out = qmm(x, w, scale), clusters sized by N as in a
+// step: the product held against its plain version at each width of a
+// step.
+extern "C" int q3_qsplit(const void* x, int x_bf16, const int8_t* w,
+                         const float* scale, float* out, int R, int K, int N,
+                         void* stream) {
+  Product p(R, K, 0.f);
+  p.rows(x, x_bf16, K).seg(w, scale, out, N, N);
+  return (int)launch_qsplit<PRO_PLAIN, int8_t, EPI_STORE_F32>(
+      p.a, reinterpret_cast<cudaStream_t>(stream));
 }

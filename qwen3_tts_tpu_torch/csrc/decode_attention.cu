@@ -59,8 +59,6 @@
 // instantiation. S is read at run time. q rows are read 16 bytes a lane.
 // Times and bounds are in PERF.md
 // (qwen3_tts_tpu_torch/tools/bench_decode_attention).
-#include <cooperative_groups.h>
-
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
@@ -76,39 +74,6 @@ constexpr int DA_MAXDH = 256;    // Dh / DA_VEC lanes a row: a power of two <= 3
 constexpr int DA_NBUF = 2;       // staging buffers a warp
 constexpr int DA_TILE_BYTES = 4 * 1024;  // bytes of K or V rows a buffer
 constexpr int DA_MAX_SMEM = 227 * 1024;
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Cluster barrier halves. A block arrives (relaxed) as it starts and waits
-// before its first store into another block's shared memory, which must
-// have started by then; the second arrive (release) and wait (acquire)
-// order those stores before the reads that follow.
-__device__ __forceinline__ void cluster_arrive_relaxed() {
-  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// every group of this thread but the newest N has landed
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 
 // 8 contiguous staged elements as f32
 __device__ __forceinline__ void ld8(const __nv_bfloat16* p, float v[8]) {

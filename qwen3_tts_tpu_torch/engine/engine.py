@@ -203,6 +203,7 @@ class TTSEngine:
             n = int(state.n_codes[0])
             codes = state.codes[0, :n].cpu().numpy()
         with _stage(timings, "vocoder"):
+            check_one_window(len(codes))
             audio = voc.to_int16(self.vocode(codes))
         if output:
             wav_io.write_wav(output, audio)

@@ -129,6 +129,37 @@ def qmm(x: torch.Tensor, w: torch.Tensor,
     return out if s is None else out * s.float()
 
 
+def qmm_split(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor = None,
+              splits: int = 1) -> torch.Tensor:
+    """qmm as K2's cluster-split product (qsplit in csrc/common.cuh) cuts
+    it: block c of ``splits`` runs only the chains of k-slices [c * NS,
+    c * NS + NS), NS = QMM_KSLICES / splits, and keeps the pair sums of its
+    groups; the groups of all blocks are then added in group order. Equal
+    to qmm bit for bit: only the owner of each chain and group changes,
+    not the order."""
+    R, K = x.shape
+    xb = _pad_last(bf16(x.float()), QMM_KSLICES)
+    wb = w.float() if w.dtype == torch.int8 else bf16(w.float())
+    wb = F.pad(wb, (0, 0, 0, xb.shape[1] - K))
+    J = xb.shape[1] // QMM_KSLICES
+    xs = xb.reshape(R, J, QMM_KSLICES)
+    ws = wb.reshape(J, QMM_KSLICES, -1)
+    NS = QMM_KSLICES // splits
+    groups = []
+    for c in range(splits):
+        sl = slice(c * NS, c * NS + NS)
+        acc = xs[:, 0, sl].T[:, :, None] * ws[0, sl][:, None, :]
+        for j in range(1, J):
+            acc = acc + xs[:, j, sl].T[:, :, None] * ws[j, sl][:, None, :]
+        a = acc.reshape(NS // 4, 4, R, -1)
+        groups.append((a[:, 0] + a[:, 1]) + (a[:, 2] + a[:, 3]))
+    groups = torch.cat(groups)                      # (32, R, N), in order
+    out = groups[0]
+    for g in range(1, groups.shape[0]):
+        out = out + groups[g]
+    return out if s is None else out * s.float()
+
+
 def sigmoid(x: torch.Tensor) -> torch.Tensor:
     """1 / (1 + exp(-x)), as the kernels compute it."""
     return 1.0 / (1.0 + torch.exp(-x))

@@ -8,7 +8,8 @@ separate q/k/v/o/gate/up/down QTensors, QTensor lm_heads), 1 <= B <= 8.
 The plain version below holds the kernel's math op for op; its sampling
 (topk_keep_mask, sample_tokens, with ops/sampling.gumbel_noise)
 reproduces the JAX kernel's integer arithmetic bit for bit, emulating
-uint32 with int64 & 0xFFFFFFFF."""
+uint32 with int64 & 0xFFFFFFFF. radix_threshold emulates the kernel's
+sampler threshold for the CPU tests."""
 
 from __future__ import annotations
 
@@ -42,6 +43,40 @@ def topk_keep_mask(logits: torch.Tensor, k: int) -> torch.Tensor:
         cnt = (key >= cand).sum(-1, keepdim=True)
         thr = torch.where(cnt >= k, cand, thr)
     return key >= thr
+
+
+def sort_keys(logits: torch.Tensor) -> torch.Tensor:
+    """The order-preserving unsigned transform of the f32 bits (the
+    kernel's sort_key), as int64."""
+    bits = logits.float().contiguous().view(torch.int32).long() & M32
+    return torch.where((bits >> 31) > 0, bits ^ M32, bits ^ 0x80000000)
+
+
+def radix_threshold(logits: torch.Tensor, k: int) -> torch.Tensor:
+    """The sampler kernel's top-k threshold: the k-th largest sort key of
+    each row, found as cp_sample_kernel does, by a radix select of 4
+    rounds of 8 bits (a 256-bin histogram of the next byte of the keys
+    that share the bytes chosen so far, then the largest bin whose suffix
+    count reaches the rank left). logits (N, V) f32 -> (N, 1) int64;
+    topk_keep_mask keeps exactly key >= this."""
+    key = sort_keys(logits)
+    N = key.shape[0]
+    thr = torch.zeros((N, 1), dtype=torch.int64, device=key.device)
+    kk = torch.full((N, 1), k, dtype=torch.int64, device=key.device)
+    bins = torch.arange(256, device=key.device)
+    for rnd in range(4):
+        shift = 24 - 8 * rnd
+        hi = (M32 << (shift + 8)) & M32 if rnd else 0
+        cand = (key & hi) == thr
+        digit = (key >> shift) & 255
+        hist = torch.zeros((N, 256), dtype=torch.int64, device=key.device)
+        hist.scatter_add_(1, digit, cand.long())
+        ge = hist.flip(1).cumsum(1).flip(1)          # count(digit >= d)
+        d = torch.where(ge >= kk, bins, -1).amax(1, keepdim=True)
+        above = ge.gather(1, d) - hist.gather(1, d)  # count(digit > d)
+        thr = thr | (d << shift)
+        kk = kk - above
+    return thr
 
 
 def sample_tokens(logits: torch.Tensor, seed_col: torch.Tensor, step: int,
@@ -81,10 +116,12 @@ def _dims(params: Dict, kv: torch.Tensor):
 def cp_decode_plain(params: Dict, tok0: torch.Tensor, kv: torch.Tensor,
                     rope_cos: torch.Tensor, rope_sin: torch.Tensor,
                     seeds: torch.Tensor, *, eps: float, top_k: int,
-                    temperature: float, greedy: bool) -> torch.Tensor:
+                    temperature: float, greedy: bool, scratch: bool = False):
     """The kernel's plain PyTorch version, op for op and in the kernel's
     summation order (ops/kernels/common.py). tok0, seeds (B,) int;
-    kv (L, 2, B, S, nKV, Dh) post-prefill. Returns (14, B) int32."""
+    kv (L, 2, B, S, nKV, Dh) post-prefill. Returns (14, B) int32; with
+    ``scratch``, also the last step's logits (B, V) f32 and residual row
+    (B, H) bf16 (the kernel's ``logits`` and ``xbuf``)."""
     L, H, QD, KVD, Dh, nH, nKV, I, V, n_steps, B, S = _dims(params, kv)
     G = nH // nKV
     scale = 1.0 / (Dh ** 0.5)
@@ -129,6 +166,8 @@ def cp_decode_plain(params: Dict, tok0: torch.Tensor, kv: torch.Tensor,
                             temperature=temperature, greedy=greedy)[:, 0]
         out[i] = tok
         tok = tok.long()
+    if scratch:
+        return out, logits, x.to(torch.bfloat16)
     return out
 
 
@@ -146,8 +185,9 @@ def _flag(t: torch.Tensor, what: str) -> int:
 def cp_decode_cuda(params: Dict, tok0: torch.Tensor, kv: torch.Tensor,
                    rope_cos: torch.Tensor, rope_sin: torch.Tensor,
                    seeds: torch.Tensor, *, eps: float, top_k: int,
-                   temperature: float, greedy: bool) -> torch.Tensor:
-    """Launch K2; same contract as cp_decode_plain."""
+                   temperature: float, greedy: bool, scratch: bool = False):
+    """Launch K2; same contract as cp_decode_plain (``scratch``: also its
+    ``logits`` and ``xbuf`` buffers after the last step)."""
     L, H, QD, KVD, Dh, nH, nKV, I, V, n_steps, B, S = _dims(params, kv)
     _check(1 <= B <= MAX_B, f"batch {B} outside 1..{MAX_B}")
     _check(Dh <= 128 and Dh % 2 == 0, f"head_dim {Dh}")
@@ -202,7 +242,36 @@ def cp_decode_cuda(params: Dict, tok0: torch.Tensor, kv: torch.Tensor,
           _build.f32_bits(eps), _build.f32_bits(1.0 / (Dh ** 0.5)),
           _build.stream())
     cp_decode_steps.launches += 1
+    if scratch:
+        return out, logits, xbuf
     return out
+
+
+def qsplit(x: torch.Tensor, w: torch.Tensor,
+           s: torch.Tensor) -> torch.Tensor:
+    """K2's product alone on CUDA tensors: f32 (R, N) = qmm(x, w, s) for x
+    (R, K) bf16 or f32 and w (K, N) int8, its k-slice groups split over
+    clusters of 2, 4 or 8 blocks as a step's product of that width
+    (csrc/common.cuh qsplit). Its plain emulation on the CPU is
+    ops/kernels/common.qmm_split."""
+    R, K = x.shape
+    N = w.shape[1]
+    _check(x.is_cuda and w.is_cuda and s.is_cuda, "qsplit: CUDA tensors")
+    _check(w.dtype == torch.int8 and s.dtype == torch.float32,
+           "qsplit: int8 weight, f32 scales")
+    _check(1 <= R <= MAX_B, f"qsplit: R {R}")
+    _check(w.shape[0] == K and tuple(s.shape) == (N,),
+           f"qsplit: x {tuple(x.shape)}, w {tuple(w.shape)}, s "
+           f"{tuple(s.shape)}")
+    x, w, s = x.contiguous(), w.contiguous(), s.contiguous()
+    out = torch.empty((R, N), dtype=torch.float32, device=x.device)
+    _qsplit_fn()(x.data_ptr(), _flag(x, "x"), w.data_ptr(), s.data_ptr(),
+                 out.data_ptr(), R, K, N, _build.stream())
+    qsplit.launches += 1
+    return out
+
+
+qsplit.launches = 0
 
 
 def cp_decode_steps(params: Dict, tok0: torch.Tensor, kv: torch.Tensor,
@@ -226,3 +295,8 @@ def _fn():
     return _build.function(
         "q3_cp_decode", "pppp" + "p" * 14 + "ppppp" + "i" + "ppi" + "pi"
         + "pp" + "pi" + "p" + "p" * 9 + "i" * 15 + "p")
+
+
+@functools.cache
+def _qsplit_fn():
+    return _build.function("q3_qsplit", "pipppiiip")

@@ -1,0 +1,172 @@
+"""End-to-end time of the port's two decode paths on one NVIDIA GPU, at
+TTSConfig() (the full 0.6B geometry, random weights from a seed):
+
+- the int8 single-request slice: TTSEngine(quantize="int8") synthesizes
+  TEXTS once to warm up, then REPS more times; wall ms/token of each
+  request (host clock, closed by a synchronise), then one request under
+  torch.profiler: device busy ms/token and kernel launches per token;
+- the dense continuous batcher (bf16 talker with attention_impl="pallas",
+  int8 code predictor, 4 slots, decode_chunk 16): BATCH_TEXTS served
+  twice, wall and audio-seconds per wall-second of each run, then one
+  scheduler step (4 admissions and 16 loop steps) under the profiler:
+  device busy ms per loop step.
+
+Device busy is the union of the kernels' intervals on the device
+(``device_busy_ms``): kernels that overlap under programmatic dependent
+launch count once, where a sum of kernel times would count the overlap
+twice. The host of a chip machine is shared and its speed drifts, so
+compare two versions only in turns in one call:
+
+    python -m qwen3_tts_tpu_torch.tools.bench_e2e
+    python qwen3_tts_tpu_torch/tools/bench_e2e.py --root DIR
+
+``--root DIR`` imports qwen3_tts_tpu_torch from another checkout (the
+parent). Prints one JSON line.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import sys
+import time
+from pathlib import Path
+
+TEXTS = ("Привет, мир!", "Hello from the port.", "Добрый день.")
+BATCH_TEXTS = ("Привет, мир!", "Hello from the port.", "Добрый день.",
+               "How are you today?", "Спасибо.", "A short one.")
+REPS = 2
+SAMPLES_PER_S = 24000
+LAUNCH_CALL = "cudaLaunchKernel"   # and cudaLaunchKernelExC
+
+
+def device_busy_ms(prof) -> float:
+    """The time at least one kernel (or copy) ran on the device in a
+    torch.profiler trace: the union of their intervals."""
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if str(e.device_type).endswith("CUDA"))
+    busy, end = 0.0, float("-inf")
+    for s, e in spans:
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    return busy / 1e3
+
+
+def device_sum_ms(prof) -> float:
+    """The sum of the same intervals: above device_busy_ms by the time
+    kernels overlapped (under dependent launch a kernel's interval includes
+    its wait for the one before)."""
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if str(e.device_type).endswith("CUDA")) / 1e3
+
+
+def launches(prof) -> int:
+    return sum(e.count for e in prof.key_averages()
+               if e.key.startswith(LAUNCH_CALL))
+
+
+def _profile(fn):
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, prof
+
+
+def run_slice() -> dict:
+    import torch
+    from qwen3_tts_tpu_torch.config import TTSConfig
+    from qwen3_tts_tpu_torch.engine.engine import TTSEngine
+    eng = TTSEngine(TTSConfig(), quantize="int8", device="cuda", seed=0)
+    walls = []
+    for rep in range(REPS + 1):
+        for i, text in enumerate(TEXTS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eng.synthesize(text, seed=i)
+            torch.cuda.synchronize()
+            if rep:   # the first pass warms up
+                walls.append(1e3 * (time.perf_counter() - t0)
+                             / max(res.n_tokens, 1))
+    res, prof = _profile(lambda: eng.synthesize(TEXTS[1], seed=1))
+    n = max(res.n_tokens, 1)
+    return {"wall_ms_per_token": statistics.median(walls),
+            "wall_ms_per_token_all": walls,
+            "device_ms_per_token": device_busy_ms(prof) / n,
+            "launches_per_token": launches(prof) / n}
+
+
+def encode_text(text: str):
+    """Byte-fallback ids padded to the engine's text bucket, and their
+    count: a batcher submission."""
+    import numpy as np
+    from qwen3_tts_tpu_torch.engine.engine import _bucket
+    raw = list(text.encode("utf-8"))
+    ids = np.zeros((_bucket(len(raw)),), np.int32)
+    ids[:len(raw)] = raw
+    return ids, len(raw)
+
+
+def _serve(b, texts) -> tuple:
+    """Serve texts through batcher b; (wall s, audio s)."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [b.submit(*encode_text(t), seed=i) for i, t in enumerate(texts)]
+    while not all(f.done() for f in futs):
+        b.step()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    audio = sum(len(f.result(timeout=0)[1]) for f in futs) / SAMPLES_PER_S
+    return wall, audio
+
+
+def run_batcher() -> dict:
+    import torch
+    from qwen3_tts_tpu_torch.config import TalkerConfig, TTSConfig
+    from qwen3_tts_tpu_torch.io.weights import init_random_params
+    from qwen3_tts_tpu_torch.serve.batching import ContinuousBatcher
+    cfg = TTSConfig(talker=TalkerConfig(attention_impl="pallas"))
+    params = init_random_params(TTSConfig(), seed=0, dtype=torch.bfloat16,
+                                device="cuda")
+    b = ContinuousBatcher(cfg, params, batch_size=4, decode_chunk=16,
+                          device="cuda")
+    runs = [_serve(b, BATCH_TEXTS) for _ in range(2)]
+    futs = [b.submit(*encode_text(t), seed=i)
+            for i, t in enumerate(BATCH_TEXTS[:4])]
+    _, prof = _profile(b.step)
+    while not all(f.done() for f in futs):
+        b.step()
+    return {"wall_s": [w for w, _ in runs],
+            "audio_s_per_wall_s": [a / w for w, a in runs],
+            "device_ms_per_loop_step": device_busy_ms(prof) / b.decode_chunk,
+            "launches_per_loop_step": launches(prof) / b.decode_chunk}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
+                    help="checkout whose qwen3_tts_tpu_torch to time "
+                         "(default: this one)")
+    sys.path.insert(0, ap.parse_args().root)
+    import torch
+    if not torch.cuda.is_available():
+        print("bench_e2e: needs a CUDA device", file=sys.stderr)
+        return 1
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    import qwen3_tts_tpu_torch
+    print(json.dumps({"root": qwen3_tts_tpu_torch.__path__[0],
+                      "slice": run_slice(), "batcher": run_batcher(),
+                      "device": torch.cuda.get_device_name(0)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

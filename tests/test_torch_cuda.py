@@ -18,6 +18,7 @@ from qwen3_tts_tpu_torch.ops import quant
 from qwen3_tts_tpu_torch.ops.kernels import cp_decode as tcp
 from qwen3_tts_tpu_torch.ops.kernels import qmatmul as tqm
 from qwen3_tts_tpu_torch.ops.kernels import talker_step as tts
+from qwen3_tts_tpu_torch.ops.kernels.common import qmm
 
 pytestmark = pytest.mark.cuda
 
@@ -116,11 +117,52 @@ def test_cp_decode_kernel_matches_plain(cuda, greedy):
     cos, sin = tfm.rope_cos_sin(torch.arange(CP_S, device=cuda),
                                 CGEO.head_dim, CGEO.rope_theta)
     kw = dict(eps=CGEO.rms_norm_eps, top_k=50,
-              temperature=0.0 if greedy else 0.1, greedy=greedy)
+              temperature=0.0 if greedy else 0.1, greedy=greedy,
+              scratch=True)
     args = (params, tok0, kv, cos, sin, seeds)
-    torch.testing.assert_close(tcp.cp_decode_cuda(*args, **kw),
-                               tcp.cp_decode_plain(*args, **kw), rtol=0,
-                               atol=0)
+    # tokens, and the last step's logits and residual row, bit for bit
+    for got, want in zip(tcp.cp_decode_cuda(*args, **kw),
+                         tcp.cp_decode_plain(*args, **kw)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("B", [1, 4, 8])
+def test_cp_decode_full_geometry_matches_plain(cuda, B):
+    """K2 at the 0.6B code predictor's geometry (random int8 weights),
+    greedy: every token, the last step's logits and its residual row
+    equal the plain version's bit for bit."""
+    from qwen3_tts_tpu_torch.tools import bench_cp_decode as bench
+    cfg, params = bench.cp_params()
+    kv, tok0, seeds = bench.inputs(cfg, B, seed=B)
+    cos, sin = tfm.rope_cos_sin(torch.arange(cfg.max_seq_len, device=cuda),
+                                cfg.head_dim, cfg.rope_theta)
+    kw = dict(eps=cfg.rms_norm_eps, top_k=50, temperature=0.0, greedy=True,
+              scratch=True)
+    args = (params, tok0, kv, cos, sin, seeds)
+    for got, want in zip(tcp.cp_decode_cuda(*args, **kw),
+                         tcp.cp_decode_plain(*args, **kw)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+
+
+# (K, N) of every product of a K2 step at the 0.6B geometry, each alone
+# and in the clusters it gets in a step: mtp, k and v, o, down (clusters
+# of 8); q and the head, gate and up (4); q|k|v and gate|up at their
+# grouped widths (2)
+QSPLIT_WIDTHS = [(1024, 1024), (1024, 2048), (2048, 1024), (1024, 3072),
+                 (3072, 1024), (1024, 4096), (1024, 6144)]
+
+
+@pytest.mark.parametrize("R", [1, 4, 8])
+@pytest.mark.parametrize("K,N", QSPLIT_WIDTHS)
+def test_qsplit_matches_qmm(cuda, K, N, R):
+    """K2's cluster-split product alone against qmm, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(K + N + R)
+    x = torch.randn((R, K), generator=g, device=cuda).bfloat16()
+    w = torch.randint(-127, 128, (K, N), generator=g, device=cuda,
+                      dtype=torch.int8)
+    s = torch.rand((N,), generator=g, device=cuda) * 0.01 + 1e-3
+    torch.testing.assert_close(tcp.qsplit(x, w, s), qmm(x, w, s),
+                               rtol=0, atol=0)
 
 
 # K5 cases (B, S, Hq, Hkv, Dh, pos): chunks of ceil(S / 8) positions, so
