@@ -13,11 +13,16 @@
    tolerances; the time of each beside its plain version's, its bound
    (bytes or operations at the card's published peaks) and, where one
    PyTorch call computes the same function, that call's time (K5 at the
-   four shapes of qwen3_tts_tpu_torch/tools/bench_decode_attention). K2
-   at B = 1, 4 and 8: greedy tokens, the last step's logits and residual
-   row bit for bit, its product alone against qmm at every width of a
-   step, and its time, launches a step and per-kernel breakdown
-   (qwen3_tts_tpu_torch/tools/bench_cp_decode).
+   four shapes of qwen3_tts_tpu_torch/tools/bench_decode_attention). K3
+   and K7 at B = 1, 4 and 8 with positions on the attention's chunk
+   edges, bit for bit, and K3's time at B = 1, 4, 8
+   (qwen3_tts_tpu_torch/tools/bench_talker_step). K2 at B = 1, 4 and 8:
+   greedy tokens, the last step's logits and residual row bit for bit,
+   its product alone against qmm at every width of a step, and its time
+   (qwen3_tts_tpu_torch/tools/bench_cp_decode). Once every kernel is
+   timed, K3's and K2's launches and per-kernel breakdown under
+   torch.profiler (a profiler session slows later chains of dependent
+   launches in the process by a few percent).
 3. Slice: TTSEngine(TTSConfig(), quantize="int8") synthesizes three short
    texts; each request must give codes in range, n_tokens * 1920 finite
    samples, and launch K1, K2 and K3.
@@ -81,11 +86,6 @@ def time_ms(*args, **kw) -> float:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise AssertionError(msg)
-
-
-def close(got, ref, rtol: float, atol: float) -> bool:
-    return bool(((got.float() - ref.float()).abs()
-                 <= atol + rtol * ref.float().abs()).all())
 
 
 def least_time(n_bytes: float, flops: float = 0.0,
@@ -166,11 +166,26 @@ def phase_qmatmul(card: str) -> dict:
             "shape": "(1,1024)x(1024,3072)"}
 
 
+# K3 and K7 check positions at S = 512: the attention's chunks are 64
+# positions, so 0, 63, 64 and 511 sit on chunk edges
+K3_POS = {1: [511], 4: [0, 63, 64, 511],
+          8: [0, 63, 64, 511, 127, 128, 490, 37]}
+# the cases K3 is timed and profiled at (tools/bench_talker_step)
+K3_TIMED = [(f"B={B} pos 490", [490] * B) for B in (1, 4, 8)]
+
+
 def phase_talker_step(eng, card: str) -> dict:
+    """K3 on the engine's int8 talker against its plain version at B = 1,
+    4 and 8 with positions on the attention's chunk edges: h and the
+    fresh rows bit for bit, the scatter into the cache. Then
+    tools/bench_talker_step at B = 1, 4, 8 (pos 490): the time under
+    CUDA-graph replay and eager (its profile comes in
+    phase_kernel_profiles)."""
     import torch
     from qwen3_tts_tpu_torch.models import transformer as tfm
     from qwen3_tts_tpu_torch.ops.kernels.talker_step import (
         talker_decode_step_fused, talker_step_cuda, talker_step_plain)
+    from qwen3_tts_tpu_torch.tools import bench_talker_step
     cfg = eng.cfg.talker
     layers = eng._tp["layers"]
     S = cfg.max_seq_len
@@ -178,27 +193,25 @@ def phase_talker_step(eng, card: str) -> dict:
                                 cfg.head_dim, cfg.rope_theta)
     eps = cfg.rms_norm_eps
     g = torch.Generator(device="cuda").manual_seed(3)
-    worst, t, wbytes, kvbytes, pos1 = 0.0, None, 0, 0, 0
-    for B in (1, 4):
+    worst = 0.0
+    for B, p in K3_POS.items():
         x = (torch.randn((B, cfg.hidden_size), generator=g, device="cuda")
              * 0.1).bfloat16()
         kv = (torch.randn((cfg.num_layers, 2, B, S, cfg.num_kv_heads,
                            cfg.head_dim), generator=g, device="cuda")
               * 0.5).bfloat16()
-        pos = torch.randint(1, S - 1, (B,), generator=g, device="cuda")
+        pos = torch.tensor(p, dtype=torch.int32, device="cuda")
         h_ref, rows_ref = talker_step_plain(layers, x, pos, kv, cos, sin, eps)
         kv_k = kv.clone()
         h_got, kv_k = talker_decode_step_fused(layers, x, pos, kv_k, cos, sin,
                                                eps=eps)
         _, rows_got = talker_step_cuda(layers, x, pos, kv, cos, sin, eps)
         torch.cuda.synchronize()
-        err = float((h_got.float() - h_ref.float()).abs().max())
-        rerr = float((rows_got - rows_ref).abs().max())
-        print(f"K3 talker_step B={B} S={S} pos={pos.tolist()}: h max_abs_err "
-              f"{err:.3e}, rows max_abs_err {rerr:.3e}")
-        check(close(h_got, h_ref, 5e-2, 2e-2), f"K3 h disagrees (B={B})")
-        check(close(rows_got, rows_ref, 2e-2, 2e-2),
-              f"K3 fresh rows disagree (B={B})")
+        err = max(float((h_got.float() - h_ref.float()).abs().max()),
+                  float((rows_got - rows_ref).abs().max()))
+        print(f"K3 talker_step B={B} S={S} pos={p}: max_abs_err {err:.3e} "
+              f"against its plain version (h and rows)")
+        check(err == 0, f"K3 disagrees with its plain version (B={B})")
         b_idx = torch.arange(B, device="cuda")
         mask = torch.ones((B, S), dtype=torch.bool, device="cuda")
         mask[b_idx, pos] = False
@@ -209,42 +222,28 @@ def phase_talker_step(eng, card: str) -> dict:
               "K3 did not scatter the fresh rows at pos")
         worst = max(worst, err)
         if B == 1:
-            def k3(p):
-                return lambda: talker_step_cuda(layers, x, p, kv, cos, sin,
-                                                eps)
-            t = (time_ms(k3(pos), 20, graph=True),
-                 time_ms(lambda: talker_step_plain(layers, x, pos, kv, cos,
-                                                   sin, eps), 5, 3))
-            t_call = time_ms(k3(pos), 20)
-            p64 = torch.full_like(pos, 64)
-            t64 = time_ms(k3(p64), 20, graph=True)
-            # bytes a step must read: the int8 weights and scales, and the
-            # bf16 K/V rows 0..pos of every layer
-            wbytes = sum(layers[n].q.numel() + 4 * layers[n].scale.numel()
-                         for n in ("qkv_proj", "o_proj", "gateup_proj",
-                                   "down_proj"))
-            pos1 = int(pos[0])
-            kvbytes = (cfg.num_layers * 2 * (pos1 + 1)
-                       * cfg.num_kv_heads * cfg.head_dim * 2)
-            print(f"  time B=1: kernel {t[0]:.4f} ms device (CUDA graph "
-                  f"replay; {(wbytes + kvbytes) / t[0] / 1e6:.0f} GB/s of "
-                  f"weights + KV), {t_call:.4f} ms per eager call, plain "
-                  f"{t[1]:.4f} ms; kernel at pos 64: {t64:.4f} ms device "
-                  f"[{card}]")
-    # bound of the timed call (B=1, pos[0]): weights, the K/V rows it
-    # reads, x and the norms once; h and the fresh rows written
-    norms = nbytes(*[layers[n] for n in ("input_ln", "post_ln", "q_norm",
-                                         "k_norm")])
-    rows_out = cfg.num_layers * 2 * cfg.num_kv_heads * cfg.head_dim * 4
-    b_ms, b_by = least_time(wbytes + kvbytes + norms + 2 * cfg.hidden_size * 2
-                       + rows_out)
-    print(f"  bound B=1 pos {pos1}: {b_ms:.4f} ms ({b_by}) [{card}]")
+            t_p = time_ms(lambda: talker_step_plain(layers, x, pos, kv, cos,
+                                                    sin, eps), 1, 2)
+    rows = bench_talker_step.time_cases(cfg, layers, K3_TIMED)
+    for r in rows:
+        print(f"  time {r['case']}: kernel {r['ms']:.4f} ms device (CUDA "
+              f"graph replay; {r['gb_s']:.0f} GB/s of weights + K/V), "
+              f"{r['eager_ms']:.4f} ms per eager call; bound "
+              f"{r['bound_ms']:.4f} ms [{card}]")
+    print(f"  plain version B=1: {t_p:.4f} ms per eager call [{card}]")
+    # bound of the timed call (B=1, pos 490): weights, the K/V rows it
+    # reads, x and the norms once, h and the fresh rows written; against
+    # the products' 2 operations a weight at the bf16 tensor-core peak
+    n_w = sum(layers[n].q.numel() for n in bench_talker_step.PRODUCTS)
+    b_ms, b_by = least_time(
+        bench_talker_step.bound_bytes(layers, cfg, [490]), 2.0 * n_w, 989e12)
     return {"name": "talker_step", "route": "cuda",
             "source": "qwen3_tts_tpu_torch/csrc/talker_step.cu",
             "replaces": "qwen3_tts_tpu/ops/pallas/talker_step.py:266",
-            "max_abs_err": worst, "ms": t[0], "plain_ms": t[1],
+            "max_abs_err": worst, "ms": rows[0]["ms"], "plain_ms": t_p,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": f"B=1 S={S} L={cfg.num_layers}"}
+            "ms_b4": rows[1]["ms"], "ms_b8": rows[2]["ms"],
+            "shape": f"B=1 S={S} L={cfg.num_layers} pos 490"}
 
 
 def phase_cp_decode(eng, card: str) -> dict:
@@ -253,8 +252,8 @@ def phase_cp_decode(eng, card: str) -> dict:
     residual row bit for bit; sampled (T 0.1, top-k 50), >= 99% of the
     draws equal. Its product alone (qsplit) against qmm at every width of a
     step, bit for bit. Then tools/bench_cp_decode: the time at B = 1, 4, 8
-    (CUDA-graph replay and eager), the weight rate, launches per call and
-    the per-kernel breakdown."""
+    (CUDA-graph replay and eager) and the weight rate (its profile comes
+    in phase_kernel_profiles)."""
     import torch
     from qwen3_tts_tpu_torch.models import transformer as tfm
     from qwen3_tts_tpu_torch.ops.kernels.common import qmm
@@ -328,20 +327,13 @@ def phase_cp_decode(eng, card: str) -> dict:
     t_p = time_ms(lambda: cp_decode_plain(
         cpp, tok0, kv, cos, sin, seeds, eps=cfg.rms_norm_eps, top_k=50,
         temperature=0.1, greedy=False), 2, 3)
-    rows = bench_cp_decode.run()
+    rows = bench_cp_decode.time_cases(*bench_cp_decode.cp_params())
     for r in rows:
         print(f"  time B={r['B']} ({steps} steps): kernel {r['ms']:.4f} ms "
               f"device (CUDA graph replay; {r['weight_gb_s']:.0f} GB/s of "
               f"weights; streaming bound {r['bound_streaming_ms']:.4f} ms), "
-              f"{r['eager_ms']:.4f} ms per eager call; "
-              f"{r['launches_per_call']:.0f} launches a call "
-              f"({r['launches_per_step']:.2f} a step) [{card}]")
-        for k, v in r["kernels"].items():
-            print(f"    {k}: {v['launches']:g} launches, {v['ms']:.4f} ms a "
-                  f"call")
+              f"{r['eager_ms']:.4f} ms per eager call [{card}]")
     print(f"  plain version B=1: {t_p:.4f} ms per eager call [{card}]")
-    check(all(r["launches_per_step"] <= 28.5 for r in rows),
-          "K2 launches more than 28 kernels a step")
     # bound (B=1): every input once -- the int8 stack and its scales, the
     # 14 lm_heads used, the mtp projection, the norms, the prefill K/V
     # rows, one embedding row per step -- and the tokens written. (Each
@@ -365,8 +357,51 @@ def phase_cp_decode(eng, card: str) -> dict:
             "max_abs_err": worst, "ms": rows[0]["ms"], "plain_ms": t_p,
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "ms_b4": rows[1]["ms"], "ms_b8": rows[2]["ms"],
-            "launches_per_step": rows[0]["launches_per_step"],
             "shape": "B=1, 14 steps, 5 layers"}
+
+
+def phase_kernel_profiles(eng, card: str, k3: dict, k2: dict) -> None:
+    """After every kernel is timed (a torch.profiler session slows later
+    chains of dependent launches in the process by a few percent): K3 and
+    K2 at their timed cases under the profiler, launches a call and device
+    ms by kernel. Every K3 product must be one qsplit launch and its
+    attention one launch a layer; K2 at most 28 launches a step."""
+    from qwen3_tts_tpu_torch.tools import bench_cp_decode, bench_talker_step
+    cfg = eng.cfg.talker
+    L = cfg.num_layers
+    rows = [{"case": c, "pos": p} for c, p in K3_TIMED]
+    bench_talker_step.profile_cases(cfg, eng._tp["layers"], rows)
+    for r in rows:
+        print(f"K3 profile {r['case']}: {r['launches_per_call']:.0f} "
+              f"launches a call [{card}]")
+        for k, v in r["kernels"].items():
+            print(f"    {k}: {v['launches']:g} launches, {v['ms']:.4f} ms a "
+                  f"call")
+        # a profile may miss events (never invent them): upper bounds,
+        # and no kernel but the products, the attention and the converts
+        kinds = {k.split("<")[0] for k in r["kernels"]}
+        n = {k: sum(v["launches"] for kk, v in r["kernels"].items()
+                    if kk.startswith(k)) for k in kinds}
+        check({"qsplit_kernel", "talker_attn_kernel"} <= kinds
+              <= {"qsplit_kernel", "talker_attn_kernel", "convert_kernel"}
+              and r["launches_per_call"] <= 5 * L + 2
+              and n["qsplit_kernel"] <= 4 * L
+              and n["talker_attn_kernel"] <= L,
+              f"K3 launches: {r['kernels']}")
+    k3["launches_per_call"] = rows[0]["launches_per_call"]
+    cp_cfg, cp = bench_cp_decode.cp_params()
+    rows = [{"B": B} for B in bench_cp_decode.BATCHES]
+    bench_cp_decode.profile_cases(cp_cfg, cp, rows)
+    for r in rows:
+        print(f"K2 profile B={r['B']}: {r['launches_per_call']:.0f} "
+              f"launches a call ({r['launches_per_step']:.2f} a step) "
+              f"[{card}]")
+        for k, v in r["kernels"].items():
+            print(f"    {k}: {v['launches']:g} launches, {v['ms']:.4f} ms a "
+                  f"call")
+    check(all(r["launches_per_step"] <= 28.5 for r in rows),
+          "K2 launches more than 28 kernels a step")
+    k2["launches_per_step"] = rows[0]["launches_per_step"]
 
 
 def phase_slice(eng, card: str, counters: dict) -> dict:
@@ -565,16 +600,15 @@ def phase_paged_attention(card: str) -> dict:
 
 
 def phase_talker_merged(eng, card: str) -> list:
-    """K7 at full geometry on the engine's int8 talker, premerged, B = 1
-    and 3 with pos 490 in row 0 (as in the K3 phase): both variants
-    against their plain version and against K3's kernel on the same
-    inputs, bit for bit; the time of each (and K3's, in the same call) by
-    CUDA-graph replay beside its bound."""
+    """K7 at full geometry on the engine's int8 talker, premerged, at
+    K3's check positions (B = 1, 4 and 8, chunk edges): both variants
+    against their plain version (error 0) and against K3's kernel on the
+    same inputs, bit for bit; the time of each at B = 1, pos 490 (and
+    K3's, in the same call) by CUDA-graph replay beside its bound."""
     import torch
     from qwen3_tts_tpu_torch.models import transformer as tfm
     from qwen3_tts_tpu_torch.ops.kernels import talker_merged as tm
-    from qwen3_tts_tpu_torch.ops.kernels.talker_step import (
-        talker_step_cuda, talker_step_plain)
+    from qwen3_tts_tpu_torch.ops.kernels.talker_step import talker_step_cuda
     cfg = eng.cfg.talker
     layers = tm.with_merged(eng._tp["layers"])
     S, eps = cfg.max_seq_len, cfg.rms_norm_eps
@@ -583,13 +617,13 @@ def phase_talker_merged(eng, card: str) -> list:
     g = torch.Generator(device="cuda").manual_seed(13)
     names = {False: "talker_step_merged", True: "talker_step_mergedvec"}
     worst = {False: 0.0, True: 0.0}
-    for B in (1, 3):
+    for B, p in K3_POS.items():
         x = (torch.randn((B, cfg.hidden_size), generator=g, device="cuda")
              * 0.1).bfloat16()
         kv = (torch.randn((cfg.num_layers, 2, B, S, cfg.num_kv_heads,
                            cfg.head_dim), generator=g, device="cuda")
               * 0.5).bfloat16()
-        pos = torch.tensor([490, 17, 311][:B], device="cuda")
+        pos = torch.tensor(p, dtype=torch.int32, device="cuda")
         h3, r3 = talker_step_cuda(layers, x, pos, kv, cos, sin, eps)
         for vec in (False, True):
             hk, rk = tm.talker_merged_cuda(layers, x, pos, kv, cos, sin, eps,
@@ -607,9 +641,10 @@ def phase_talker_merged(eng, card: str) -> list:
                             f"version (B={B})")
             check(same, f"K7 {names[vec]} differs from K3 (B={B})")
             worst[vec] = max(worst[vec], err)
-    # timing at B = 1, pos 490 (the last x, kv of B = 3 cut to one row)
-    x1, kv1 = x[:1].contiguous(), kv[:, :, :1].contiguous()
-    p1 = pos[:1]
+    # timing at B = 1, pos 490 (row 6 of the last x, kv of B = 8)
+    x1, kv1 = x[6:7].contiguous(), kv[:, :, 6:7].contiguous()
+    p1 = pos[6:7]
+    check(int(p1) == 490, "K7 timing row is not at pos 490")
     t3 = time_ms(lambda: talker_step_cuda(layers, x1, p1, kv1, cos, sin,
                                           eps), 20, graph=True)
     kvbytes = cfg.num_layers * 2 * 491 * cfg.num_kv_heads * cfg.head_dim * 2
@@ -1011,6 +1046,9 @@ def main() -> int:
                *phase_talker_merged(eng, card), phase_cp_decode(eng, card),
                phase_decode_attention(card), phase_paged_attention(card),
                phase_kv_int8(card)]
+    by_name = {k["name"]: k for k in kernels}
+    phase_kernel_profiles(eng, card, by_name["talker_step"],
+                          by_name["cp_decode"])
     counters = {"qmatmul": qmatmul, "talker_step": talker_decode_step_fused,
                 "cp_decode": cp_decode_steps,
                 "decode_attention": decode_attention,

@@ -1,7 +1,7 @@
 // Device-side primitives shared by the port's kernels: the qmm tile of
-// qmatmul (K1), talker_step (K3, K7), the cluster-split product of
-// cp_decode (K2), the block reductions of the attention kernels, and the
-// cp.async, cluster-barrier and dependent-launch helpers. Twin of
+// qmatmul (K1), the cluster-split product (qsplit) of cp_decode (K2) and
+// talker_step (K3, K7), the block reductions of the attention kernels, and
+// the cp.async, cluster-barrier and dependent-launch helpers. Twin of
 // qwen3_tts_tpu/ops/pallas/common.py:
 // one definition of the RMS norm, rotate-half RoPE, the int8 product and
 // the masking constant, so the kernels cannot drift apart. Their
@@ -228,7 +228,7 @@ __device__ __forceinline__ float rope_at(const float* row, int d, int Dh,
 // K0 qmm: out[r, n] = (sum_k bf16(x[r, k]) * bf16(w[k, n])) * scale[n]
 //
 // w is row-major with a row stride of ldw >= N elements: a product may read
-// a column block of a wider matrix (the merged weight streams of K7).
+// a column block of a wider matrix.
 // One block computes a tile of up to QMM_RT rows x QMM_NT = 32 adjacent
 // columns. The rows sit in shared memory as bf16 (xs, row stride K); the
 // prologue that fills them (plain, RMS-normed, SwiGLU or gathered) is the
@@ -520,7 +520,9 @@ constexpr int QS_MAX_SMEM = 200 * 1024;
 constexpr int QS_MIN_BLOCKS = 128;
 
 struct QsSeg {
-  const void* w;                // (K, N) int8 / bf16 / f32, row-major
+  const void* w; int ldw;       // (K, N) int8 / bf16 / f32, row-major with
+                                // a row stride of ldw >= N elements (a
+                                // column block of a wider matrix: K7)
   const float* scale;           // (N,) or null
   const void* bias;             // (N,) or null
   void* out; int ldo;           // (R, ldo)
@@ -672,7 +674,7 @@ __global__ void __launch_bounds__(QS_THREADS) qsplit_kernel(QsArgs a) {
       const int k = kof(row), n = n0 + p * CPP;
       char* dst = reinterpret_cast<char*>(wt) + (size_t)row * WB + 16 * p;
       if (k < K && n < sg.N)
-        cp_async16(dst, w + (long)k * sg.N + n);
+        cp_async16(dst, w + (long)k * sg.ldw + n);
       else
         *reinterpret_cast<uint4*>(dst) = make_uint4(0u, 0u, 0u, 0u);
     }
@@ -859,8 +861,8 @@ template <int PRO, typename W, int EPI>
 cudaError_t launch_qsplit(QsArgs a, cudaStream_t st) {
   const int xb = a.x_bf16 ? 2 : 4, nb = a.nw_bf16 ? 2 : 4;
   // 16-byte copies and loads: of the weights (64 / (16 / sizeof(W)) a
-  // tile row; rows of N % 16 == 0 weights keep that alignment), of the x
-  // rows and of the norm weight
+  // tile row; every row start keeps that alignment when w does and ldw *
+  // sizeof(W) is a multiple of 16), of the x rows and of the norm weight
   const auto al16 = [](const void* p) {
     return reinterpret_cast<uintptr_t>(p) % 16 == 0;
   };
@@ -872,7 +874,8 @@ cudaError_t launch_qsplit(QsArgs a, cudaStream_t st) {
   int tiles = 0;
   for (int i = 0; i < a.nseg && ok; ++i) {
     const QsSeg& s = a.seg[i];
-    ok = s.N > 0 && s.N % QS_CPT == 0 && al16(s.w);
+    ok = s.N > 0 && s.N % QS_CPT == 0 && s.ldw >= s.N &&
+         (s.ldw * sizeof(W)) % 16 == 0 && al16(s.w);
     tiles += qs_tiles(s.N);
   }
   if (!ok) return cudaErrorInvalidValue;
@@ -887,6 +890,29 @@ cudaError_t launch_qsplit(QsArgs a, cudaStream_t st) {
   return launch_pdl(qsplit_kernel<PRO, W, EPI>, dim3(tiles * a.cs),
                     dim3(QS_THREADS), smem, st, a.cs, a);
 }
+
+// One qsplit product of rows x (R, K) through up to three weights, built
+// up by its setters: rows, then (RMS) the norm weight, then each segment.
+struct Product {
+  QsArgs a;
+  Product(int R, int K, float eps) : a() {
+    a.R = R; a.K = K; a.eps = eps;
+  }
+  Product& rows(const void* x, int x_bf16, int ldx) {
+    a.x = x; a.x_bf16 = x_bf16; a.ldx = ldx;
+    return *this;
+  }
+  Product& norm(const void* nw, int nw_bf16) {
+    a.nw = nw; a.nw_bf16 = nw_bf16;
+    return *this;
+  }
+  // a weight (K, N) of row stride ldw (0: dense, N) into out (R, ldo)
+  Product& seg(const void* w, const float* scale, void* out, int ldo, int N,
+               int ldw = 0) {
+    a.seg[a.nseg++] = QsSeg{w, ldw ? ldw : N, scale, nullptr, out, ldo, N};
+    return *this;
+  }
+};
 
 // dst[i] = float(src[i]) (src f32 or bf16), optionally through bf16
 __global__ void convert_kernel(const void* src, int src_bf16, void* dst,

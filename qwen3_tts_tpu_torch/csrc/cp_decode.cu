@@ -254,26 +254,6 @@ cp_sample_kernel(const float* logits, int V, const int* seeds, int step,
   }
 }
 
-// one qsplit product of rows x (R, K) through up to three weights
-struct Product {
-  QsArgs a;
-  Product(int B, int K, float eps) : a() {
-    a.R = B; a.K = K; a.eps = eps;
-  }
-  Product& rows(const void* x, int x_bf16, int ldx) {
-    a.x = x; a.x_bf16 = x_bf16; a.ldx = ldx;
-    return *this;
-  }
-  Product& norm(const void* nw, int nw_bf16) {
-    a.nw = nw; a.nw_bf16 = nw_bf16;
-    return *this;
-  }
-  Product& seg(const void* w, const float* scale, void* out, int ldo, int N) {
-    a.seg[a.nseg++] = QsSeg{w, scale, nullptr, out, ldo, N};
-    return *this;
-  }
-};
-
 }  // namespace
 
 extern "C" int q3_cp_decode(
@@ -366,15 +346,23 @@ extern "C" int q3_cp_decode(
   return 0;
 }
 
-// One qsplit product alone -- rows x (R, K) bf16 or f32, plain prologue,
-// int8 w (K, N), f32 out = qmm(x, w, scale), clusters sized by N as in a
-// step: the product held against its plain version at each width of a
-// step.
-extern "C" int q3_qsplit(const void* x, int x_bf16, const int8_t* w,
-                         const float* scale, float* out, int R, int K, int N,
-                         void* stream) {
-  Product p(R, K, 0.f);
-  p.rows(x, x_bf16, K).seg(w, scale, out, N, N);
-  return (int)launch_qsplit<PRO_PLAIN, int8_t, EPI_STORE_F32>(
-      p.a, reinterpret_cast<cudaStream_t>(stream));
+// One qsplit product alone -- rows x (R, K) bf16 or f32, int8 w (K, N) of
+// row stride ldw, clusters sized by N as in a step: out = qmm(x, w, scale)
+// (f32); with a norm weight nw, out = qmm(rms(x, nw), w, scale) (PRO_RMS);
+// with add, out += qmm(x, w, scale) (EPI_ADD_F32, no norm). The product
+// held against its plain version at each width and path of a step.
+extern "C" int q3_qsplit(const void* x, int x_bf16, const void* nw,
+                         int nw_bf16, const int8_t* w, int ldw,
+                         const float* scale, float* out, int add, int R,
+                         int K, int N, int eps_bits, void* stream) {
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  Product p(R, K, host_float(eps_bits));
+  p.rows(x, x_bf16, K).seg(w, scale, out, N, N, ldw);
+  if (nw && add) return (int)cudaErrorInvalidValue;
+  if (nw)
+    return (int)launch_qsplit<PRO_RMS, int8_t, EPI_STORE_F32>(
+        p.norm(nw, nw_bf16).a, st);
+  if (add)
+    return (int)launch_qsplit<PRO_PLAIN, int8_t, EPI_ADD_F32>(p.a, st);
+  return (int)launch_qsplit<PRO_PLAIN, int8_t, EPI_STORE_F32>(p.a, st);
 }

@@ -247,12 +247,17 @@ def cp_decode_cuda(params: Dict, tok0: torch.Tensor, kv: torch.Tensor,
     return out
 
 
-def qsplit(x: torch.Tensor, w: torch.Tensor,
-           s: torch.Tensor) -> torch.Tensor:
-    """K2's product alone on CUDA tensors: f32 (R, N) = qmm(x, w, s) for x
-    (R, K) bf16 or f32 and w (K, N) int8, its k-slice groups split over
-    clusters of 2, 4 or 8 blocks as a step's product of that width
-    (csrc/common.cuh qsplit). Its plain emulation on the CPU is
+def qsplit(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor, *,
+           norm: torch.Tensor = None, eps: float = 1e-6,
+           residual: torch.Tensor = None) -> torch.Tensor:
+    """The cluster-split product of K2 and K3 alone on CUDA tensors: f32
+    (R, N) = qmm(x, w, s) for x (R, K) bf16 or f32 and w (K, N) int8, its
+    k-slice groups split over clusters of 2, 4 or 8 blocks as a step's
+    product of that width (csrc/common.cuh qsplit). w may be a column
+    block of a wider matrix (rows contiguous, read with their row stride).
+    With ``norm`` (K,) the rows are RMS-normed first, qmm(rms_rows(x, norm,
+    eps), w, s); with ``residual`` (R, N) f32 the result is residual +
+    qmm(x, w, s) (not both). Its plain emulation on the CPU is
     ops/kernels/common.qmm_split."""
     R, K = x.shape
     N = w.shape[1]
@@ -260,13 +265,24 @@ def qsplit(x: torch.Tensor, w: torch.Tensor,
     _check(w.dtype == torch.int8 and s.dtype == torch.float32,
            "qsplit: int8 weight, f32 scales")
     _check(1 <= R <= MAX_B, f"qsplit: R {R}")
-    _check(w.shape[0] == K and tuple(s.shape) == (N,),
-           f"qsplit: x {tuple(x.shape)}, w {tuple(w.shape)}, s "
-           f"{tuple(s.shape)}")
-    x, w, s = x.contiguous(), w.contiguous(), s.contiguous()
-    out = torch.empty((R, N), dtype=torch.float32, device=x.device)
-    _qsplit_fn()(x.data_ptr(), _flag(x, "x"), w.data_ptr(), s.data_ptr(),
-                 out.data_ptr(), R, K, N, _build.stream())
+    _check(w.shape[0] == K and tuple(s.shape) == (N,) and w.stride(1) == 1,
+           f"qsplit: x {tuple(x.shape)}, w {tuple(w.shape)} (stride "
+           f"{w.stride()}), s {tuple(s.shape)}")
+    _check(norm is None or residual is None, "qsplit: norm or residual")
+    x, s = x.contiguous(), s.contiguous()
+    if residual is None:
+        out = torch.empty((R, N), dtype=torch.float32, device=x.device)
+    else:
+        _check(residual.dtype == torch.float32
+               and tuple(residual.shape) == (R, N), "qsplit: residual")
+        out = residual.contiguous().clone()
+    nw = None if norm is None else norm.contiguous()
+    _qsplit_fn()(x.data_ptr(), _flag(x, "x"),
+                 None if nw is None else nw.data_ptr(),
+                 0 if nw is None else _flag(nw, "norm"), w.data_ptr(),
+                 w.stride(0), s.data_ptr(), out.data_ptr(),
+                 int(residual is not None), R, K, N, _build.f32_bits(eps),
+                 _build.stream())
     qsplit.launches += 1
     return out
 
@@ -299,4 +315,4 @@ def _fn():
 
 @functools.cache
 def _qsplit_fn():
-    return _build.function("q3_qsplit", "pipppiiip")
+    return _build.function("q3_qsplit", "pipipippiiiiip")

@@ -14,13 +14,15 @@ import functools
 from typing import Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from qwen3_tts_tpu_torch.ops.kernels import _build
 from qwen3_tts_tpu_torch.ops.kernels.common import (
-    NEG, bf16, lane_dot, pv, qmm, rms_heads, rms_rows, rope, sigmoid,
-    softmax_sum)
+    bf16, lane_sum, pv_valid, qmm, rms_heads, rms_rows, rope, row_dot,
+    sigmoid)
 
 MAX_B = 8
+NSPLIT = 8        # chunks of positions: blocks of a cluster (TA_NSPLIT)
 
 
 def _dims(layers: Dict, kv: torch.Tensor):
@@ -34,22 +36,57 @@ def _dims(layers: Dict, kv: torch.Tensor):
     return L, H, NQKV, Dh, QD, nH, nKV, I, B, S
 
 
+def split_attention(q: torch.Tensor, K: torch.Tensor, V: torch.Tensor,
+                    pos: torch.Tensor, scale: float) -> torch.Tensor:
+    """The attention of K3 in its kernel's order (csrc/talker_step.cu):
+    the positions cut into NSPLIT chunks of C = ceil(S / NSPLIT); scores
+    s = row_dot(q, K) * scale; M the max over s <= pos; e = exp(s - M);
+    each chunk's sum in lane_sum order, the live chunks' sums added in
+    chunk order; p = bf16(e / sum); each chunk's P.V chains in position
+    order; the live chunks' partials added in chunk order.
+
+    q (B, nKV, G, Dh) bf16 values in f32; K, V (B, S, nKV, Dh) bf16 values
+    in f32 with the fresh rows at pos; returns (B, nKV, G, Dh) f32."""
+    B, S, nKV, Dh = K.shape
+    C = -(-S // NSPLIT)
+    pad = (0, 0, 0, NSPLIT * C - S)
+    Kh = F.pad(K.permute(0, 2, 1, 3), pad)[:, :, None]   # (B, nKV, 1, 8C, Dh)
+    Vh = F.pad(V.permute(0, 2, 1, 3), pad)[:, :, None]
+    sc = row_dot(q[:, :, :, None, :], Kh) * scale         # (B, nKV, G, 8C)
+    valid = (torch.arange(NSPLIT * C, device=q.device)[None, :]
+             <= pos[:, None])[:, None, None, :]            # (B, 1, 1, 8C)
+    M = torch.where(valid, sc, torch.full_like(sc, -torch.inf)).amax(
+        -1, keepdim=True)
+    e = torch.where(valid, torch.exp(sc - M), torch.zeros_like(sc))
+    live = (torch.arange(NSPLIT, device=q.device)[None, :]
+            <= (pos // C)[:, None])[:, None, None, :]      # (B, 1, 1, 8)
+    chunk = lane_sum(e.unflatten(-1, (NSPLIT, C)))         # (B, nKV, G, 8)
+    tot = chunk[..., 0]
+    for c in range(1, NSPLIT):
+        tot = torch.where(live[..., c], tot + chunk[..., c], tot)
+    p = bf16(e / tot[..., None])
+    part = pv_valid(p.unflatten(-1, (NSPLIT, C)),
+                    Vh.unflatten(3, (NSPLIT, C)),
+                    valid.unflatten(-1, (NSPLIT, C)))      # (B, nKV, G, 8, Dh)
+    out = torch.zeros_like(part[..., 0, :])
+    for c in range(NSPLIT):
+        out = torch.where(live[..., c, None], out + part[..., c, :], out)
+    return out
+
+
 def talker_step_plain(layers: Dict, x: torch.Tensor, pos: torch.Tensor,
                       kv: torch.Tensor, rope_cos: torch.Tensor,
                       rope_sin: torch.Tensor, eps: float):
     """The kernel's plain PyTorch version, op for op and in the kernel's
-    summation order (ops/kernels/common.py). Returns (h (B, H) through
-    bf16 in x's dtype, fresh rows (L, 2, B, nKV, Dh) f32)."""
+    summation order (ops/kernels/common.py, split_attention). Returns (h
+    (B, H) through bf16 in x's dtype, fresh rows (L, 2, B, nKV, Dh) f32)."""
     L, H, NQKV, Dh, QD, nH, nKV, I, B, S = _dims(layers, kv)
     G = nH // nKV
     scale = 1.0 / (Dh ** 0.5)
     pos = pos.long()
-    n_pos = int(pos.max()) + 1
     b_idx = torch.arange(B, device=x.device)
     c = rope_cos.float()[pos][:, None, :]            # (B, 1, Dh)
     s = rope_sin.float()[pos][:, None, :]
-    valid = (torch.arange(S, device=x.device)[None, :]
-             <= pos[:, None])[:, None, None, :]       # (B, 1, 1, S)
     h = bf16(x.float())
     rows = torch.empty((L, 2, B, nKV, Dh), dtype=torch.float32,
                        device=x.device)
@@ -67,15 +104,9 @@ def talker_step_plain(layers: Dict, x: torch.Tensor, pos: torch.Tensor,
         V = bf16(kv[l, 1].float())
         K[b_idx, pos] = bf16(k)
         V[b_idx, pos] = bf16(v)
-        qb = bf16(q).reshape(B, nKV, G, 1, Dh)
-        Kh = K.permute(0, 2, 1, 3)[:, :, None]        # (B, nKV, 1, S, Dh)
-        sc = lane_dot(qb, Kh) * scale                 # (B, nKV, G, S)
-        sc = torch.where(valid, sc, torch.full_like(sc, NEG))
-        e = torch.exp(sc - sc.amax(-1, keepdim=True))
-        e = torch.where(valid, e, torch.zeros_like(e))
-        p = bf16(e / softmax_sum(e)[..., None])
-        Vh = V.permute(0, 2, 1, 3)[:, :, None]        # (B, nKV, 1, S, Dh)
-        attn = bf16(pv(p, Vh, n_pos)).reshape(B, QD)
+        attn = split_attention(bf16(q).reshape(B, nKV, G, Dh), K, V, pos,
+                               scale)
+        attn = bf16(attn).reshape(B, QD)
         h = h + qmm(attn, layers["o_proj"].q[l], layers["o_proj"].scale[l])
         gu = qmm(rms_rows(h, layers["post_ln"][l], eps),
                  layers["gateup_proj"].q[l], layers["gateup_proj"].scale[l])
@@ -96,10 +127,13 @@ def talker_step_cuda(layers: Dict, x: torch.Tensor, pos: torch.Tensor,
     """Launch the kernel; same contract as talker_step_plain. The products
     and the norm weights may be strided views over the layer axis and the
     weight rows (K7 passes the blocks of its merged streams, see
-    talker_merged.merged_views); only their rows must be contiguous."""
+    talker_merged.merged_views); only their rows must be contiguous, and
+    the products' rows and the norm weights 16-byte aligned (the kernel
+    refuses them otherwise)."""
     L, H, NQKV, Dh, QD, nH, nKV, I, B, S = _dims(layers, kv)
     _check(1 <= B <= MAX_B, f"batch {B} outside 1..{MAX_B}")
-    _check(Dh <= 128 and Dh % 2 == 0, f"head_dim {Dh}")
+    _check(Dh in (8, 16, 32, 64, 128), f"head_dim {Dh}")
+    _check(nH % nKV == 0 and nH // nKV <= 8, f"{nH} heads over {nKV}")
     _check(x.dtype in (torch.bfloat16, torch.float32), f"x {x.dtype}")
     _check(kv.dtype in (torch.bfloat16, torch.float32), f"kv {kv.dtype}")
     _check(x.shape == (B, H), f"x shape {tuple(x.shape)}")

@@ -10,9 +10,11 @@ time to enqueue one call (from an idle device), and the weight
 rate: the bytes each step must stream (the int8 layer stack and its
 scales, one lm_head, the mtp projection; the stack and heads exceed the
 50 MB L2, so each of the 14 steps reads them again) over the replay
-time, against the streaming bound (those bytes at 3.35 TB/s). Then one
-call under torch.profiler: device time and count of every kernel it
-launched, and launches per call and per step.
+time, against the streaming bound (those bytes at 3.35 TB/s). Then, once
+every B is timed, calls of each under torch.profiler: device time and
+count of every kernel it launched, and launches per call and per step.
+(On an H100, K2 replayed a few percent slower after the process's first
+profiler session, hence the order.)
 
     python -m qwen3_tts_tpu_torch.tools.bench_cp_decode
     python qwen3_tts_tpu_torch/tools/bench_cp_decode.py --root DIR
@@ -136,42 +138,61 @@ def profile_call(fn) -> dict:
     return out
 
 
-def run() -> list:
-    """Time and profile K2 at each B of BATCHES; returns one dict per B."""
+def k2_call(cfg, params, B: int):
+    """A sampled K2 call at B rows, inputs from SEED + B."""
     import torch
     from qwen3_tts_tpu_torch.models import transformer as tfm
     from qwen3_tts_tpu_torch.ops.kernels.cp_decode import cp_decode_cuda
-    from qwen3_tts_tpu_torch.tools import time_ms
-    cfg, params = cp_params()
-    S = cfg.max_seq_len
-    cos, sin = tfm.rope_cos_sin(torch.arange(S, device="cuda"),
+    cos, sin = tfm.rope_cos_sin(torch.arange(cfg.max_seq_len, device="cuda"),
                                 cfg.head_dim, cfg.rope_theta)
-    steps = cfg.num_groups - 1
-    sb = step_bytes(params)
-    bound = steps * sb / HBM_BYTES_PER_S * 1e3
-    out = []
-    for B in BATCHES:
-        kv, tok0, seeds = inputs(cfg, B, SEED + B)
-
-        def k2():
-            return cp_decode_cuda(params, tok0, kv, cos, sin, seeds,
+    kv, tok0, seeds = inputs(cfg, B, SEED + B)
+    return lambda: cp_decode_cuda(params, tok0, kv, cos, sin, seeds,
                                   eps=cfg.rms_norm_eps, top_k=50,
                                   temperature=0.1, greedy=False)
+
+
+def time_cases(cfg, params, batches=BATCHES) -> list:
+    """Time K2 at each B of ``batches``; one dict per B."""
+    from qwen3_tts_tpu_torch.tools import time_ms
+    steps = cfg.num_groups - 1
+    sb = step_bytes(params)
+    out = []
+    for B in batches:
+        k2 = k2_call(cfg, params, B)
         t_graph = time_ms(k2, 10, graph=True)
-        t_call = time_ms(k2, 10)
-        t_host = host_ms(k2)
-        prof = profile_call(k2)
-        n_launch = sum(n for n, _ in prof.values())
         out.append({
-            "B": B, "ms": t_graph, "eager_ms": t_call, "host_ms": t_host,
+            "B": B, "ms": t_graph, "eager_ms": time_ms(k2, 10),
+            "host_ms": host_ms(k2),
             "weight_gb_s": steps * sb / (t_graph * 1e-3) / 1e9,
-            "bound_streaming_ms": bound, "launches_per_call": n_launch,
+            "bound_streaming_ms": steps * sb / HBM_BYTES_PER_S * 1e3})
+    return out
+
+
+def profile_cases(cfg, params, rows: list) -> None:
+    """Add to each row of ``time_cases`` the profile of its B: launches a
+    call and a step, and launches and device ms a call of each kernel."""
+    steps = cfg.num_groups - 1
+    for row in rows:
+        prof = profile_call(k2_call(cfg, params, row["B"]))
+        n_launch = sum(n for n, _ in prof.values())
+        row.update({
+            "launches_per_call": n_launch,
             "launches_per_step": n_launch / steps,
             "profiled_device_ms": sum(ms for _, ms in prof.values()),
             "kernels": {k: {"launches": round(n, 3), "ms": round(ms, 5)}
                         for k, (n, ms) in sorted(
                             prof.items(), key=lambda kv_: -kv_[1][1])}})
-    return out
+
+
+def run() -> list:
+    """``time_cases``, then ``profile_cases``, on random params: every
+    time is taken before the process's first torch.profiler session,
+    after which a chain of dependent launches replays a few percent
+    slower for the rest of the process."""
+    cfg, params = cp_params()
+    rows = time_cases(cfg, params)
+    profile_cases(cfg, params, rows)
+    return rows
 
 
 def main() -> int:

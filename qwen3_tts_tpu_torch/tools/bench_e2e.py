@@ -4,7 +4,11 @@ TTSConfig() (the full 0.6B geometry, random weights from a seed):
 - the int8 single-request slice: TTSEngine(quantize="int8") synthesizes
   TEXTS once to warm up, then REPS more times; wall ms/token of each
   request (host clock, closed by a synchronise), then one request under
-  torch.profiler: device busy ms/token and kernel launches per token;
+  torch.profiler: device busy ms/token, kernel launches per token and
+  the host CPU time of those launch calls per token, by launch call
+  (plain and extended) with its host us a call, beside a gauge of the
+  host's speed: the host us a call of one fixed trivial launch, profiled
+  just before and just after the request;
 - the dense continuous batcher (bf16 talker with attention_impl="pallas",
   int8 code predictor, 4 slots, decode_chunk 16): BATCH_TEXTS served
   twice, wall and audio-seconds per wall-second of each run, then one
@@ -17,11 +21,11 @@ launch count once, where a sum of kernel times would count the overlap
 twice. The host of a chip machine is shared and its speed drifts, so
 compare two versions only in turns in one call:
 
-    python -m qwen3_tts_tpu_torch.tools.bench_e2e
+    python -m qwen3_tts_tpu_torch.tools.bench_e2e [--slice-only]
     python qwen3_tts_tpu_torch/tools/bench_e2e.py --root DIR
 
 ``--root DIR`` imports qwen3_tts_tpu_torch from another checkout (the
-parent). Prints one JSON line.
+parent); ``--slice-only`` skips the batcher. Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -68,6 +72,37 @@ def launches(prof) -> int:
                if e.key.startswith(LAUNCH_CALL))
 
 
+def launch_host_ms(prof) -> float:
+    """Host CPU time spent inside the CUDA runtime's kernel-launch calls:
+    what the launches alone cost the host, whatever the device does."""
+    return sum(e.cpu_time_total for e in prof.key_averages()
+               if e.key.startswith(LAUNCH_CALL)) / 1e3
+
+
+def launch_calls(prof, n: int) -> dict:
+    """Each kind of launch call (cudaLaunchKernel, cudaLaunchKernelExC):
+    calls per token (n tokens) and host us a call."""
+    return {e.key: {"per_token": e.count / n,
+                    "host_us_a_call": e.cpu_time_total / e.count}
+            for e in prof.key_averages()
+            if e.key.startswith(LAUNCH_CALL) and e.count}
+
+
+def host_gauge_us(calls: int = 2000) -> float:
+    """Host us a call of cudaLaunchKernel for a one-element add, under
+    the profiler as the request is: the same work whatever the code under
+    test, so drift of the host moves it and a change of the code does
+    not."""
+    import torch
+    t = torch.zeros(1, device="cuda")
+
+    def adds():
+        for _ in range(calls):
+            t.add_(1)
+    _, prof = _profile(adds)
+    return launch_calls(prof, 1)["cudaLaunchKernel"]["host_us_a_call"]
+
+
 def _profile(fn):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -94,12 +129,17 @@ def run_slice() -> dict:
             if rep:   # the first pass warms up
                 walls.append(1e3 * (time.perf_counter() - t0)
                              / max(res.n_tokens, 1))
+    gauge = [host_gauge_us()]
     res, prof = _profile(lambda: eng.synthesize(TEXTS[1], seed=1))
+    gauge.append(host_gauge_us())
     n = max(res.n_tokens, 1)
     return {"wall_ms_per_token": statistics.median(walls),
             "wall_ms_per_token_all": walls,
             "device_ms_per_token": device_busy_ms(prof) / n,
-            "launches_per_token": launches(prof) / n}
+            "launches_per_token": launches(prof) / n,
+            "launch_host_ms_per_token": launch_host_ms(prof) / n,
+            "launch_calls": launch_calls(prof, n),
+            "host_gauge_us_a_call": gauge}
 
 
 def encode_text(text: str):
@@ -154,7 +194,10 @@ def main() -> int:
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
                     help="checkout whose qwen3_tts_tpu_torch to time "
                          "(default: this one)")
-    sys.path.insert(0, ap.parse_args().root)
+    ap.add_argument("--slice-only", action="store_true",
+                    help="time the int8 slice only, not the batcher")
+    args = ap.parse_args()
+    sys.path.insert(0, args.root)
     import torch
     if not torch.cuda.is_available():
         print("bench_e2e: needs a CUDA device", file=sys.stderr)
@@ -162,9 +205,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     import qwen3_tts_tpu_torch
-    print(json.dumps({"root": qwen3_tts_tpu_torch.__path__[0],
-                      "slice": run_slice(), "batcher": run_batcher(),
-                      "device": torch.cuda.get_device_name(0)}))
+    out = {"root": qwen3_tts_tpu_torch.__path__[0], "slice": run_slice()}
+    if not args.slice_only:
+        out["batcher"] = run_batcher()
+    print(json.dumps({**out, "device": torch.cuda.get_device_name(0)}))
     return 0
 
 

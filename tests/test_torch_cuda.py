@@ -75,22 +75,61 @@ def test_qmatmul_kernel_matches_plain(cuda, M):
                                tqm.qmatmul_plain(x, q, s), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("B", [1, 3])
-def test_talker_step_kernel_matches_plain(cuda, B):
+# K3 with 4 query heads of 64 per KV head: the attention's generic
+# instantiation (more than 2 heads a group, 8 lanes a row)
+TGEO4 = tfm.TransformerGeometry(
+    num_layers=2, hidden_size=256, intermediate_size=256, num_heads=8,
+    num_kv_heads=2, head_dim=64, rms_norm_eps=1e-6, rope_theta=1e6)
+# K3 cases (B, positions, cache dtype, geometry) at S = 64: the attention's
+# chunks are ceil(64 / 8) = 8 positions, so 0, 7, 8 and 63 sit on chunk
+# edges
+K3_CASES = {
+    "B1-first": (1, [0], torch.bfloat16, TGEO),
+    "B1-last": (1, [63], torch.bfloat16, TGEO),
+    "B3-edges": (3, [7, 8, 40], torch.bfloat16, TGEO),
+    "B3-f32": (3, [8, 63, 0], torch.float32, TGEO),
+    "B8-edges": (8, [0, 7, 8, 63, 1, 15, 16, 33], torch.bfloat16, TGEO),
+    "B3-G4-Dh64": (3, [63, 8, 0], torch.bfloat16, TGEO4),
+}
+
+
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_talker_step_kernel_matches_plain(cuda, case):
+    B, pos, dtype, geo = K3_CASES[case]
     rng = np.random.default_rng(B)
-    layers = quant.quantize_layer_stack(_stack(rng, TGEO, cuda), fuse=True)
+    layers = quant.quantize_layer_stack(_stack(rng, geo, cuda), fuse=True)
     g = torch.Generator(device=cuda).manual_seed(B)
-    x = torch.randn((B, TGEO.hidden_size), generator=g,
+    x = torch.randn((B, geo.hidden_size), generator=g,
                     device=cuda).bfloat16()
-    kv = torch.randn((TGEO.num_layers, 2, B, 64, 1, TGEO.head_dim),
-                     generator=g, device=cuda).bfloat16()
-    pos = torch.randint(1, 63, (B,), generator=g, device=cuda)
+    kv = torch.randn((geo.num_layers, 2, B, 64, geo.num_kv_heads,
+                      geo.head_dim), generator=g, device=cuda).to(dtype)
+    pos = torch.tensor(pos, device=cuda)
     cos, sin = tfm.rope_cos_sin(torch.arange(64, device=cuda),
-                                TGEO.head_dim, TGEO.rope_theta)
+                                geo.head_dim, geo.rope_theta)
     h_k, r_k = tts.talker_step_cuda(layers, x, pos, kv, cos, sin, 1e-6)
     h_p, r_p = tts.talker_step_plain(layers, x, pos, kv, cos, sin, 1e-6)
     torch.testing.assert_close(h_k, h_p, rtol=0, atol=0)
     torch.testing.assert_close(r_k, r_p, rtol=0, atol=0)
+    # the wrapper takes pos as int64 or int32 alike
+    h_32, r_32 = tts.talker_step_cuda(layers, x, pos.int(), kv, cos, sin,
+                                      1e-6)
+    assert torch.equal(h_32, h_k) and torch.equal(r_32, r_k)
+
+
+@pytest.mark.parametrize("pos", [[490], [0, 63, 64, 511, 127, 128, 200, 37]])
+def test_talker_step_full_geometry_matches_plain(cuda, pos):
+    """K3 at the 0.6B talker's geometry (random int8 weights, S 512,
+    chunks of 64): h and the fresh rows equal the plain version's bit for
+    bit, at B = 1 and at B = 8 with positions on chunk edges."""
+    from qwen3_tts_tpu_torch.tools import bench_talker_step as bench
+    cfg, layers = bench.talker_layers()
+    x, kv, p = bench.inputs(cfg, pos, seed=len(pos))
+    cos, sin = tfm.rope_cos_sin(torch.arange(bench.S, device=cuda),
+                                cfg.head_dim, cfg.rope_theta)
+    args = (layers, x, p, kv, cos, sin, cfg.rms_norm_eps)
+    for got, want in zip(tts.talker_step_cuda(*args),
+                         tts.talker_step_plain(*args)):
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 @pytest.mark.parametrize("greedy", [True, False])
@@ -163,6 +202,50 @@ def test_qsplit_matches_qmm(cuda, K, N, R):
     s = torch.rand((N,), generator=g, device=cuda) * 0.01 + 1e-3
     torch.testing.assert_close(tcp.qsplit(x, w, s), qmm(x, w, s),
                                rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("R", [1, 8])
+@pytest.mark.parametrize("norm_dtype", [torch.float32, torch.bfloat16])
+def test_qsplit_rms_f32_rows_and_residual_add(cuda, R, norm_dtype):
+    """The two qsplit paths K3 runs and K2 does not, against qmm bit for
+    bit: RMS-normed f32 rows (the f32 residual h, PRO_RMS) at q|k|v's
+    width, and an f32 residual added to the product (EPI_ADD_F32) at o's
+    and down's."""
+    from qwen3_tts_tpu_torch.ops.kernels.common import rms_rows
+    g = torch.Generator(device=cuda).manual_seed(R)
+    h = torch.randn((R, 1024), generator=g, device=cuda)
+    nw = (1 + 0.1 * torch.randn((1024,), generator=g, device=cuda)).to(
+        norm_dtype)
+    w = torch.randint(-127, 128, (1024, 4096), generator=g, device=cuda,
+                      dtype=torch.int8)
+    s = torch.rand((4096,), generator=g, device=cuda) * 0.01 + 1e-3
+    torch.testing.assert_close(tcp.qsplit(h, w, s, norm=nw, eps=1e-6),
+                               qmm(rms_rows(h, nw, 1e-6), w, s),
+                               rtol=0, atol=0)
+    for K in (2048, 3072):
+        x = torch.randn((R, K), generator=g, device=cuda).bfloat16()
+        w = torch.randint(-127, 128, (K, 1024), generator=g, device=cuda,
+                          dtype=torch.int8)
+        s = torch.rand((1024,), generator=g, device=cuda) * 0.01 + 1e-3
+        torch.testing.assert_close(tcp.qsplit(x, w, s, residual=h),
+                                   h + qmm(x, w, s), rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("R", [1, 8])
+def test_qsplit_column_block_matches_dense(cuda, R):
+    """qsplit on column blocks of a wider matrix (K7's q|k|v and gate|up
+    inside [qkv | gate|up], row stride 10240 > N) against qmm on dense
+    copies, bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(10 + R)
+    x = torch.randn((R, 1024), generator=g, device=cuda).bfloat16()
+    wide = torch.randint(-127, 128, (1024, 10240), generator=g, device=cuda,
+                         dtype=torch.int8)
+    s = torch.rand((10240,), generator=g, device=cuda) * 0.01 + 1e-3
+    for lo, hi in ((0, 4096), (4096, 10240)):
+        got = tcp.qsplit(x, wide[:, lo:hi], s[lo:hi])
+        torch.testing.assert_close(
+            got, qmm(x, wide[:, lo:hi].contiguous(), s[lo:hi]),
+            rtol=0, atol=0)
 
 
 # K5 cases (B, S, Hq, Hkv, Dh, pos): chunks of ceil(S / 8) positions, so
@@ -262,9 +345,9 @@ def test_kv_int8_kernel_matches_plain(cuda, dtype):
 
 @pytest.mark.parametrize("vec_merged", [False, True])
 def test_talker_merged_kernel_matches_plain_and_k3(cuda, vec_merged):
-    """K7 (merged weight streams, the qmm tile reading column blocks with
-    a row stride ldw != N) against its plain version and against K3 on
-    the same weights, bit for bit."""
+    """K7 (merged weight streams, qsplit reading column blocks with a row
+    stride ldw != N) against its plain version and against K3 on the same
+    weights, bit for bit."""
     from qwen3_tts_tpu_torch.ops.kernels import talker_merged as tm
     B = 3
     rng = np.random.default_rng(B)

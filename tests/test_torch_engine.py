@@ -8,7 +8,7 @@ geometry:
 2. The CLI's defaults are the JAX CLI's: bf16 (``--quantize none``), with
    int8 a choice.
 3. The device busy time of tools/bench_e2e counts overlapping kernels
-   once.
+   once; its host launch time adds the launch calls' CPU time only.
 """
 
 import dataclasses
@@ -76,3 +76,39 @@ def test_device_busy_counts_overlapping_kernels_once():
                               ev("CUDA", 21, 22)])
     assert device_busy_ms(prof) == pytest.approx((12 + 5) / 1e3)
     assert device_sum_ms(prof) == pytest.approx((10 + 7 + 5 + 1) / 1e3)
+
+
+def test_launch_host_ms_sums_kernel_launch_calls():
+    """tools/bench_e2e's host launch time adds the CPU time of the CUDA
+    runtime's launch calls (plain and extended), and of nothing else."""
+    from types import SimpleNamespace as NS
+
+    from qwen3_tts_tpu_torch.tools.bench_e2e import launch_host_ms
+
+    prof = NS(key_averages=lambda: [
+        NS(key="cudaLaunchKernel", cpu_time_total=5000.0),
+        NS(key="cudaLaunchKernelExC", cpu_time_total=2500.0),
+        NS(key="cudaMemcpyAsync", cpu_time_total=900.0),
+        NS(key="aten::mul", cpu_time_total=700.0)])
+    assert launch_host_ms(prof) == pytest.approx(7.5)
+
+
+def test_launch_calls_split_by_launch_kind():
+    """tools/bench_e2e's launch_calls gives each launch call (plain and
+    extended) its calls per token and host us a call, and skips other
+    runtime calls and launch kinds that made no call."""
+    from types import SimpleNamespace as NS
+
+    from qwen3_tts_tpu_torch.tools.bench_e2e import launch_calls
+
+    prof = NS(key_averages=lambda: [
+        NS(key="cudaLaunchKernel", count=40, cpu_time_total=200.0),
+        NS(key="cudaLaunchKernelExC", count=10, cpu_time_total=45.0),
+        NS(key="cudaLaunchCooperativeKernel", count=0, cpu_time_total=0.0),
+        NS(key="cudaMemcpyAsync", count=3, cpu_time_total=60.0)])
+    got = launch_calls(prof, 4)
+    assert set(got) == {"cudaLaunchKernel", "cudaLaunchKernelExC"}
+    assert got["cudaLaunchKernel"] == pytest.approx(
+        {"per_token": 10.0, "host_us_a_call": 5.0})
+    assert got["cudaLaunchKernelExC"] == pytest.approx(
+        {"per_token": 2.5, "host_us_a_call": 4.5})
