@@ -7,13 +7,15 @@
    the CUDA kernels from csrc/ (build seconds).
 2. Kernels: each hand-written kernel against its plain PyTorch version on
    the card at the main paths' shapes (full 0.6B geometry, random
-   weights): K1 qmatmul, K3 talker_step, K7 talker_step_merged (both
+   weights): K1 qmatmul (both routes: grouped qsplit for decode rows, the
+   qmm tile for prefill rows), K3 talker_step, K7 talker_step_merged (both
    variants, also against K3), K2 cp_decode, K5 decode_attention, K4
-   paged_attention, K6 decode_attention_kv_int8, with the stated
-   tolerances; the time of each beside its plain version's, its bound
-   (bytes or operations at the card's published peaks) and, where one
-   PyTorch call computes the same function, that call's time (K5 at the
-   four shapes of qwen3_tts_tpu_torch/tools/bench_decode_attention). K3
+   paged_attention (also against K5 over the gathered rows, B = 4 and 8),
+   K6 decode_attention_kv_int8, with the stated tolerances; the time of
+   each beside its plain version's, its bound (bytes or operations at the
+   card's published peaks) and, where one PyTorch call computes the same
+   function, that call's time (K5 at the four shapes of
+   qwen3_tts_tpu_torch/tools/bench_decode_attention). K3
    and K7 at B = 1, 4 and 8 with positions on the attention's chunk
    edges, bit for bit, and K3's time at B = 1, 4, 8
    (qwen3_tts_tpu_torch/tools/bench_talker_step). K2 at B = 1, 4 and 8:
@@ -25,13 +27,15 @@
    launches in the process by a few percent).
 3. Slice: TTSEngine(TTSConfig(), quantize="int8") synthesizes three short
    texts; each request must give codes in range, n_tokens * 1920 finite
-   samples, and launch K1, K2 and K3.
+   samples, and launch K1 (on both routes), K2 and K3; K1 at most 23
+   launches a decode step plus 4 a talker layer a request (the prefill).
 4. Profile: one more request under torch.profiler, after the checked
    ones: device time by kernel, device busy time, launches per token.
 5. Batcher: ContinuousBatcher (bf16 talker, int8 code predictor, 4 slots)
    serves 6 requests, dense with attention_impl="pallas" (K5), then paged
    (K4); each run twice, which must give equal codes (the paged rerun
-   with its free pages handed out in reverse order).
+   with its free pages handed out in reverse order), then one scheduler
+   step of each under torch.profiler.
 6. synthesize_batch: 3 texts in one batched decode (bf16, K5).
 7. The port of tools/dev/bench_kv_int8.py (qwen3_tts_tpu_torch.tools.
    bench_kv_int8): the bf16 and the int8-KV talker decode loops (K6) at
@@ -102,47 +106,46 @@ def nbytes(*ts) -> int:
 
 
 def phase_qmatmul(card: str) -> dict:
+    """K1 at the slice's shapes (tools/bench_qmatmul) against its plain
+    version, error 0 on both routes (qsplit for decode rows, grouped; the
+    qmm tile for prefill rows), each case on the route its shape picks;
+    then the time of each case (CUDA-graph replay, weights from HBM) and,
+    for codec_head, the plain version's, the bound and the library's
+    int8 product."""
     import torch
-    from qwen3_tts_tpu_torch.ops.kernels.qmatmul import (qmatmul,
-                                                         qmatmul_plain)
+    from qwen3_tts_tpu_torch.ops.kernels import qmatmul as tqm
+    from qwen3_tts_tpu_torch.tools import bench_qmatmul
     g = torch.Generator(device="cuda").manual_seed(1)
-    worst, times = 0.0, {}
-    for M, K, N, what in ((1, 1024, 3072, "codec_head"),
-                          (2, 1024, 2048, "cp prefill q_proj"),
-                          (73, 1024, 4096, "talker prefill qkv")):
-        x = torch.randn((M, K), generator=g, device="cuda").bfloat16()
-        q = torch.randint(-127, 128, (K, N), generator=g, device="cuda",
-                          dtype=torch.int8)
-        s = torch.rand((N,), generator=g, device="cuda") * 0.01 + 1e-3
-        ref = qmatmul_plain(x, q, s)
-        got = qmatmul(x, q, s)
+    worst = 0.0
+    for what, M, K, Ns in bench_qmatmul.CASES:
+        x, ws = bench_qmatmul.inputs(g, M, K, Ns)
+        route = "qsplit" if tqm.on_qsplit(M, K, Ns) else "qmm"
+        n0 = (tqm.qmatmul_qsplit.launches, tqm.qmatmul_qmm.launches)
+        got = tqm.qmatmul_group(x, ws)
+        n1 = (tqm.qmatmul_qsplit.launches - n0[0],
+              tqm.qmatmul_qmm.launches - n0[1])
         torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        bound = 2e-3 * float(ref.abs().max())
-        print(f"K1 qmatmul ({M},{K})x({K},{N}) [{what}]: max_abs_err "
-              f"{err:.3e} (bound {bound:.3e})")
-        check(err <= bound, f"K1 ({M},{K},{N}) disagrees with its plain "
-                            "version")
+        err = max(float((o - tqm.qmatmul_plain(x, q, s)).abs().max())
+                  for o, (q, s) in zip(got, ws))
+        print(f"K1 qmatmul {what} ({M},{K})x({K},{'|'.join(map(str, Ns))}) "
+              f"[{route}, launches qsplit/qmm {n1}]: max_abs_err {err:.3e}")
+        check(err == 0, f"K1 {what} disagrees with its plain version")
+        check(n1 == ((1, 0) if route == "qsplit" else (0, len(Ns))),
+              f"K1 {what}: launches {n1} on route {route}")
         worst = max(worst, err)
-        # cycle through copies of the weight that together exceed the
-        # 50 MB L2, so each call streams its weight from HBM as in decode
-        qs = [q] + [q.clone() for _ in range((64 << 20) // (K * N))]
-        nxt = itertools.cycle(qs).__next__
-        t_k = time_ms(lambda: qmatmul(x, nxt(), s), 50, graph=True)
-        t_p = time_ms(lambda: qmatmul_plain(x, nxt(), s), 50, graph=True)
-        del qs
-        times[(M, K, N)] = (t_k, t_p)
-        gbs = K * N / (t_k * 1e-3) / 1e9
-        print(f"  device time (CUDA graph replay, weights from HBM): kernel "
-              f"{t_k:.4f} ms ({gbs:.0f} GB/s of int8 weights), plain "
-              f"{t_p:.4f} ms [{card}]")
-    t_k, t_p = times[(1, 1024, 3072)]
+    rows = bench_qmatmul.run()
+    for r in rows:
+        print(f"  time {r['case']}: kernel {r['ms']:.5f} ms device (CUDA graph "
+              f"replay, weights from HBM; {r['launches_a_call']} launches, "
+              f"{r['weight_gb_s']:.0f} GB/s of int8 weights) [{card}]")
     M, K, N = 1, 1024, 3072
-    x = torch.randn((M, K), generator=g, device="cuda").bfloat16()
-    q = torch.randint(-127, 128, (K, N), generator=g, device="cuda",
-                      dtype=torch.int8)
-    s = torch.rand((N,), generator=g, device="cuda") * 0.01 + 1e-3
-    b_ms, b_by = least_time(nbytes(x, q, s) + M * N * 4, 2.0 * M * K * N, 989e12)
+    x, [(q, s)] = bench_qmatmul.inputs(g, M, K, [N])
+    qs = [q] + [q.clone() for _ in range((64 << 20) // (K * N))]
+    nxt = itertools.cycle(qs).__next__
+    t_p = time_ms(lambda: tqm.qmatmul_plain(x, nxt(), s), 50, graph=True)
+    print(f"  plain codec_head: {t_p:.4f} ms [{card}]")
+    b_ms, b_by = least_time(nbytes(x, q, s) + M * N * 4, 2.0 * M * K * N,
+                            989e12)
     # the library's weight-only int8 product, where this torch has a CUDA
     # kernel for it: w (N, K) int8, bf16 scales
     lib = None
@@ -161,9 +164,10 @@ def phase_qmatmul(card: str) -> dict:
     return {"name": "qmatmul", "route": "cuda",
             "source": "qwen3_tts_tpu_torch/csrc/qmatmul.cu",
             "replaces": "qwen3_tts_tpu/ops/pallas/qmatmul.py:48",
-            "max_abs_err": worst, "ms": t_k, "plain_ms": t_p,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
-            "shape": "(1,1024)x(1024,3072)"}
+            "max_abs_err": worst, "ms": rows[0]["ms"],
+            "plain_ms": t_p, "bound_ms": b_ms,
+            "bound_by": b_by, "library_ms": lib,
+            "shape": "(1,1024)x(1024,3072) on qsplit", "cases": rows}
 
 
 # K3 and K7 check positions at S = 512: the attention's chunks are 64
@@ -404,11 +408,20 @@ def phase_kernel_profiles(eng, card: str, k3: dict, k2: dict) -> None:
     k2["launches_per_step"] = rows[0]["launches_per_step"]
 
 
+# K1 launches a decode step of the slice (a token; the loop runs in
+# chunks of 8 steps, so a request's steps round its tokens up to 8):
+# codec_head, lm_heads[0] and the code predictor's 2-token prefill (5
+# layers x q|k|v, o, gate|up, down), all on qsplit: 22; the talker
+# prefill adds 4 a layer a request (qmm tile)
+K1_PER_STEP = 23
+
+
 def phase_slice(eng, card: str, counters: dict) -> dict:
     import numpy as np
     import torch
     for fn in counters.values():
         fn.launches = 0
+    tokens = 0
     for i, text in enumerate(TEXTS):
         before = {k: fn.launches for k, fn in counters.items()}
         torch.cuda.synchronize()
@@ -430,8 +443,19 @@ def phase_slice(eng, card: str, counters: dict) -> dict:
         check(len(res.audio_int16) == n * 1920, "duration math broken")
         check(bool(np.isfinite(res.audio_int16.astype(np.float64)).all()),
               "non-finite audio")
-        for k in ("qmatmul", "talker_step", "cp_decode"):
+        for k in ("qmatmul", "qmatmul_qsplit", "qmatmul_qmm", "talker_step",
+                  "cp_decode"):
             check(grew[k] > 0, f"kernel {k} was not launched by request {i}")
+        tokens += n
+    k1 = counters["qmatmul"].launches
+    steps = counters["talker_step"].launches   # one K3 launch a step
+    cap = K1_PER_STEP * steps + 4 * eng.cfg.talker.num_layers * len(TEXTS)
+    print(f"slice: K1 {k1} launches for {steps} decode steps ({tokens} "
+          f"tokens kept; {k1 / steps:.2f} a step; qsplit "
+          f"{counters['qmatmul_qsplit'].launches}, qmm tile "
+          f"{counters['qmatmul_qmm'].launches}); at most {cap} "
+          f"({K1_PER_STEP} a step and 4 a talker layer a request)")
+    check(k1 <= cap, f"K1 launched {k1} times in the slice (cap {cap})")
     return {k: fn.launches for k, fn in counters.items()}
 
 
@@ -540,63 +564,98 @@ def phase_decode_attention(card: str) -> dict:
             "shapes": shapes}
 
 
+def _no_copy_ops(fn) -> list:
+    """The aten ops fn dispatches that copy or convert a tensor (each
+    would be a kernel launch beside the hand-written one)."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Ops(TorchDispatchMode):
+        seen = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.seen.append(str(func))
+            return func(*args, **(kwargs or {}))
+    with Ops() as mode:
+        fn()
+    return [o for o in mode.seen if "copy" in o or "to_" in o]
+
+
 def phase_paged_attention(card: str) -> dict:
-    """K4 at the paged batcher's shapes (B 4, pages of 64, 9 per row, a
-    pool of 37 with page 0 reserved, a scrambled table) against its plain
-    version, f32 and bf16, and against K5 over the gathered rows (f32)."""
+    """K4 at the paged batcher's page geometry (pages of 64, 9 a row, a
+    scrambled table, row 0 one page and the rest of its table the
+    reserved page 0) at B = 4 and 8, f32 and bf16, against its plain
+    version and against K5 over the rows the table gathers, error 0
+    (K4 is K5's split behind the table); its dispatcher on the batcher's
+    operands (bf16, int32 table and pos) dispatches no copy or convert.
+    Then its time at B = 4 and 8, bf16 (pools cycled past the L2, CUDA
+    graph replay), beside its bound and, for reference only, SDPA over
+    the gathered rows (tools/bench_decode_attention.run_paged)."""
     import torch
     from qwen3_tts_tpu_torch.ops.kernels.decode_attention import (
         decode_attention_cuda)
     from qwen3_tts_tpu_torch.ops.kernels.paged_attention import (
-        paged_attention_cuda, paged_attention_plain, paged_gather_kv)
+        paged_attention_cuda, paged_attention_plain, paged_decode_attention,
+        paged_gather_kv)
+    from qwen3_tts_tpu_torch.tools import bench_decode_attention
     g = torch.Generator(device="cuda").manual_seed(9)
-    B, psz, MAXP, P, Hq, Hkv, Dh = 4, 64, 9, 37, 16, 8, 128
-    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(9))
-    table = (perm[:B * MAXP] + 1).reshape(B, MAXP).to(torch.int32).cuda()
-    pos = torch.tensor([0, MAXP * psz - 1, 300, 64], device="cuda")
-    table[0, 1:] = 0                   # row 0 holds one page
-    worst = 0.0
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
-        q = torch.randn((B, Hq, Dh), generator=g, device="cuda").to(dtype)
-        pool = torch.randn((2, P, psz, Hkv, Dh), generator=g,
-                           device="cuda").to(dtype)
-        ref = paged_attention_plain(q, pool[0], pool[1], table, pos)
-        got = paged_attention_cuda(q, pool[0], pool[1], table, pos)
-        torch.cuda.synchronize()
-        err, mx = _rel_err(got, ref)
-        print(f"K4 paged_attention {str(dtype)[6:]} B={B} pos={pos.tolist()}"
-              f": max_abs_err {err:.3e} vs plain (bound {tol * mx:.3e})")
-        check(err <= tol * mx,
-              f"K4 disagrees with its plain version ({dtype})")
-        worst = max(worst, err)
-        if dtype == torch.float32:
+    psz, MAXP = bench_decode_attention.PSZ, bench_decode_attention.MAXP
+    Hq, Hkv, Dh = 16, 8, 128
+    POS = {B: pl for _, B, pl in bench_decode_attention.PAGED_SHAPES}
+    worst, timed = 0.0, {}
+    for B, pl in POS.items():
+        P = B * MAXP + 1
+        perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(B))
+        table = (perm[:B * MAXP] + 1).reshape(B, MAXP).to(torch.int32).cuda()
+        table[0, 1:] = 0                   # row 0 holds one page
+        pos = torch.tensor(pl, dtype=torch.int32, device="cuda")
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn((B, Hq, Dh), generator=g, device="cuda").to(dtype)
+            pool = torch.randn((2, P, psz, Hkv, Dh), generator=g,
+                               device="cuda").to(dtype)
+            ref = paged_attention_plain(q, pool[0], pool[1], table, pos)
+            got = paged_attention_cuda(q, pool[0], pool[1], table, pos)
             kv = paged_gather_kv(pool, table)
             dense = decode_attention_cuda(q, kv[0].contiguous(),
                                           kv[1].contiguous(), pos)
-            err, mx = _rel_err(got, dense)
-            print(f"  K4 vs K5 over the same logical rows (f32): "
-                  f"max_abs_err {err:.3e} (bound {1e-5 * mx:.3e})")
-            check(err <= 1e-5 * mx, "K4 disagrees with K5 on the same rows")
-    pools = [pool] + [pool.clone() for _ in range(27)]
-    it = itertools.cycle(range(28)).__next__
-    t_k = time_ms(lambda: paged_attention_cuda(q, *pools[it()], table, pos),
-                  56, graph=True)
+            torch.cuda.synchronize()
+            err, _ = _rel_err(got, ref)
+            err5, _ = _rel_err(got, dense)
+            print(f"K4 paged_attention {str(dtype)[6:]} B={B} P={P} pos={pl}: "
+                  f"max_abs_err {err:.3e} vs plain, {err5:.3e} vs K5 over "
+                  f"the gathered rows")
+            check(got.dtype == dtype and err == 0 and err5 == 0,
+                  f"K4 disagrees with its plain version or K5 ({dtype}, "
+                  f"B={B})")
+            worst = max(worst, err, err5)
+        copies = _no_copy_ops(lambda: paged_decode_attention(q, pool, table,
+                                                             pos))
+        print(f"K4 dispatcher on bf16 q and pool, int32 table and pos: copy "
+              f"or convert ops {copies}")
+        check(not copies, f"K4's dispatcher copies: {copies}")
+        timed[B] = (q, pool, table, pos)
+    shapes = bench_decode_attention.run_paged()
+    for r in shapes:
+        print(f"  time {r['shape']} bf16: kernel {r['ms']:.5f} ms device "
+              f"(CUDA graph replay over {r['pools']} pools, "
+              f"{r['mb_read_a_cycle']:.0f} MB of K/V a cycle); bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}, "
+              f"{r['bound_ms'] / r['ms']:.1%} of it); reference only, not a "
+              f"library call for this function: SDPA over the gathered rows "
+              f"{r['sdpa_gathered_reference_ms']:.5f} ms [{card}]")
+    q, pool, table, pos = timed[4]
     t_p = time_ms(lambda: paged_attention_plain(q, pool[0], pool[1], table,
-                                                pos), 2, 3)
-    del pools
-    rows = int((pos + 1).sum())
-    b_ms, b_by = least_time(nbytes(q, table, pos) + 2 * rows * Hkv * Dh * 2
-                       + B * Hq * Dh * 4, 4.0 * rows * Hq * Dh)
-    print(f"  time B=4 bf16 pool: kernel {t_k:.5f} ms device (CUDA graph "
-          f"replay, pages from HBM), plain {t_p:.3f} ms; bound {b_ms:.5f} "
-          f"ms ({b_by}: {rows} K/V rows); no single PyTorch call does a "
-          f"paged gather plus attention [{card}]")
+                                                pos), 1, 2)
+    print(f"  plain B=4: {t_p:.3f} ms per eager call [{card}]")
+    b4, b8 = shapes
     return {"name": "paged_attention", "route": "cuda",
-            "source": "qwen3_tts_tpu_torch/csrc/paged_attention.cu",
+            "source": "qwen3_tts_tpu_torch/csrc/decode_attention.cu",
             "replaces": "qwen3_tts_tpu/ops/pallas/paged_attention.py:147",
-            "max_abs_err": worst, "ms": t_k, "plain_ms": t_p,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "shape": f"B=4 psz={psz} MAXP={MAXP} P={P} bf16"}
+            "max_abs_err": worst, "ms": b4["ms"], "plain_ms": t_p,
+            "bound_ms": b4["bound_ms"], "bound_by": b4["bound_by"],
+            "library_ms": None,
+            "sdpa_gathered_reference_ms": b4["sdpa_gathered_reference_ms"],
+            "ms_b8": b8["ms"], "bound_ms_b8": b8["bound_ms"],
+            "shape": f"B=4 psz={psz} MAXP={MAXP} P=37 bf16", "shapes": shapes}
 
 
 def phase_talker_merged(eng, card: str) -> list:
@@ -816,7 +875,7 @@ def _serve(b, card: str, label: str, counters: dict):
     return codes, launches
 
 
-def profile_batcher_step(b, card: str) -> None:
+def profile_batcher_step(b, card: str, label: str) -> None:
     """One scheduler step (admission of 4 requests and a 16-token chunk)
     under torch.profiler: device busy time per loop step and the kernels
     that take it; the requests are then drained outside the profiler."""
@@ -836,15 +895,16 @@ def profile_batcher_step(b, card: str) -> None:
     busy, launches = bench_e2e.device_busy_ms(prof), bench_e2e.launches(prof)
     summed = bench_e2e.device_sum_ms(prof)
     steps = b.decode_chunk
-    k5 = [e for e in ka if "decode_attn" in e.key
-          and str(e.device_type).endswith("CUDA")]
-    k5_ms = sum(e.self_device_time_total for e in k5) / 1e3
-    k5_n = sum(e.count for e in k5)
-    check(k5_n > 0, "batcher profile: no K5 kernel in the trace")
-    print(f"batcher profile: K5 (decode_attn_split_kernel) {k5_n} launches, "
-          f"{k5_ms:.4f} ms device, {k5_ms / steps:.4f} ms per loop step "
-          f"({k5_ms / k5_n * 1e3:.2f} us a launch) [{card}]")
-    print(f"batcher profile: one scheduler step (4 admissions + "
+    # K5 and K4 share one kernel body (decode_attn_split_kernel)
+    att = [e for e in ka if "decode_attn" in e.key
+           and str(e.device_type).endswith("CUDA")]
+    att_ms = sum(e.self_device_time_total for e in att) / 1e3
+    att_n = sum(e.count for e in att)
+    check(att_n > 0, f"{label} profile: no attention kernel in the trace")
+    print(f"{label} profile: attention (decode_attn_split_kernel) {att_n} "
+          f"launches, {att_ms:.4f} ms device, {att_ms / steps:.4f} ms per "
+          f"loop step ({att_ms / att_n * 1e3:.2f} us a launch) [{card}]")
+    print(f"{label} profile: one scheduler step (4 admissions + "
           f"{steps} loop steps), wall {wall:.3f} s under the profiler, "
           f"device busy {busy:.1f} ms ({busy / steps:.2f} ms per loop "
           f"step; sum of kernel times {summed:.1f} ms), {launches} kernel "
@@ -883,8 +943,7 @@ def phase_batcher(params, card: str, counters: dict) -> dict:
                   "paged batcher: pages not all back in the free list")
             b._free.reverse()      # hand out other pages the second time
         codes2, _ = _serve(b, card, label + " (rerun)", counters)
-        if not paged:
-            profile_batcher_step(b, card)
+        profile_batcher_step(b, card, label)
         same = all(np.array_equal(x, y) for x, y in zip(codes, codes2))
         print(f"{label}: rerun codes equal: {same}")
         check(same, f"{label}: a rerun gave other codes")
@@ -1030,7 +1089,8 @@ def main() -> int:
         decode_attention_kv_int8)
     from qwen3_tts_tpu_torch.ops.kernels.paged_attention import (
         paged_decode_attention)
-    from qwen3_tts_tpu_torch.ops.kernels.qmatmul import qmatmul
+    from qwen3_tts_tpu_torch.ops.kernels.qmatmul import (
+        qmatmul, qmatmul_qmm, qmatmul_qsplit)
     from qwen3_tts_tpu_torch.ops.kernels.talker_merged import (
         talker_decode_step_merged, talker_decode_step_mergedvec)
     from qwen3_tts_tpu_torch.ops.kernels.talker_step import (
@@ -1049,7 +1109,9 @@ def main() -> int:
     by_name = {k["name"]: k for k in kernels}
     phase_kernel_profiles(eng, card, by_name["talker_step"],
                           by_name["cp_decode"])
-    counters = {"qmatmul": qmatmul, "talker_step": talker_decode_step_fused,
+    counters = {"qmatmul": qmatmul, "qmatmul_qsplit": qmatmul_qsplit,
+                "qmatmul_qmm": qmatmul_qmm,
+                "talker_step": talker_decode_step_fused,
                 "cp_decode": cp_decode_steps,
                 "decode_attention": decode_attention,
                 "paged_attention": paged_decode_attention,

@@ -1,13 +1,20 @@
-// K5: one-token GQA decode attention over the dense KV cache.
+// K5: one-token GQA decode attention over the dense KV cache, and K4: the
+// same over a block-paged KV pool through a per-row page table. One
+// kernel body; a compile-time mode says how a position's row is found.
 //
-// Replaces the TPU kernel qwen3_tts_tpu/ops/pallas/decode_attention.py ::
-// decode_attention_pallas.
+// Replaces the TPU kernels qwen3_tts_tpu/ops/pallas/decode_attention.py ::
+// decode_attention_pallas (K5) and qwen3_tts_tpu/ops/pallas/
+// paged_attention.py :: paged_decode_attention_pallas (K4).
 //
 // out[b, h*G + g, :] = softmax_s(q[b, h*G + g] . K[b, s, h] * scale, s <=
 // pos[b]) . V[b, :, h], with q, K and V read as f32 (from bf16 or f32),
 // all arithmetic in f32, the output stored in q's dtype. Keys past pos are
-// not read: the TPU kernel masks them at -1e30, where exp underflows to
+// not read: the TPU kernels mask them at -1e30, where exp underflows to
 // exactly 0 in f32, so leaving them out changes no bit of the softmax.
+// Dense (K5): row b's position s is K[b, s] of a (B, S, Hkv, Dh) cache.
+// Paged (K4): it is pool[table[b, s / psz], s % psz] of a (P, psz, Hkv, Dh)
+// pool, S = MAXP * psz; table entries past a row's allocation are 0, a
+// reserved page, and since no position past pos is read, never read.
 //
 // Bound on an H100: a call reads each row's K and V for positions 0..pos
 // once (2 x (pos+1) x Hkv x Dh elements; at B = 4, S = 512, bf16 and pos
@@ -22,7 +29,10 @@
 // [c*C, c*C + C), C = ceil(S / 8) (a function of S only: no host sync, and
 // a CUDA graph can capture the call), and each of its DA_WARPS = 4 warps
 // the sub-chunk [c*C + w*W, c*C + w*W + W), W = ceil(C / 4). A block or
-// warp whose positions start past pos loads nothing. Before it computes
+// warp whose positions start past pos loads nothing. Paged, each warp
+// first turns its positions into pool rows, one table entry a position
+// read while pos is read (a sub-chunk may straddle page edges: the lookup
+// is per position). Before it computes
 // anything, each warp issues cp.async copies, 16 bytes a lane, of its K
 // rows and V rows into its own ring of shared-memory buffers (longer
 // sub-chunks are walked in tiles, K tiles first), so the V read overlaps
@@ -49,7 +59,9 @@
 // store, makes sure every block of the cluster is running by then.) One
 // launch, no global scratch, no score array of size S (W floats per head
 // and warp). The plain version (ops/kernels/decode_attention.py) follows
-// every one of these orders, so the two agree bit for bit.
+// every one of these orders, so the two agree bit for bit; K4's plain
+// version (ops/kernels/paged_attention.py) is K5's over the rows the table
+// gathers.
 //
 // What sets the time: at these sizes not the bytes but each block's chain
 // of dependent steps (the pos load, the copies, scores, softmax, P.V, the
@@ -72,7 +84,10 @@ constexpr int DA_MAXG = 8;       // query heads per kv head
 constexpr int DA_VEC = 8;        // elements of a lane's dot chain
 constexpr int DA_MAXDH = 256;    // Dh / DA_VEC lanes a row: a power of two <= 32
 constexpr int DA_NBUF = 2;       // staging buffers a warp
-constexpr int DA_TILE_BYTES = 4 * 1024;  // bytes of K or V rows a buffer
+// bytes of K or V rows a buffer: a warp's sub-chunk of up to 32 bf16 rows
+// of 128 (the paged batcher's 18 of 576 positions, K5's 16 of 512) is one
+// K stage and one V stage, all in flight at once
+constexpr int DA_TILE_BYTES = 8 * 1024;
 constexpr int DA_MAX_SMEM = 227 * 1024;
 
 // 8 contiguous staged elements as f32
@@ -89,25 +104,30 @@ __device__ __forceinline__ void ld8(const float* p, float v[8]) {
 
 struct DaArgs {
   const void* q; int q_bf16;
-  const void* k; const void* v;  // (B, S, Hkv, Dh), f32 or bf16 (KV)
+  const void* k; const void* v;  // dense (B, S, Hkv, Dh); paged pools (P,
+                                 // psz, Hkv, Dh); f32 or bf16 (KV)
   const void* pos; int pos64;    // (B,) int32, or int64 if pos64
+  const int* table; int MAXP, psz;  // paged: (B, MAXP) page ids, S = MAXP * psz
   void* out;                     // (B, Hq * Dh) in q's type
   int S, Hq, Hkv, Dh;
   int tile;                      // rows a staging buffer holds
   float scale;
 };
 
-// shared-memory floats after the staging rings: a warp's scores, every
-// warp's (m, l) and P.V, and the slices of every block's (m, l) and P.V
-// that this block combines
-inline int da_smem_floats(int G, int Dh, int W) {
+// shared-memory words (f32, or int for the pool rows) after the staging
+// rings: a warp's scores, every warp's (m, l) and P.V, the slices of every
+// block's (m, l) and P.V that this block combines, and (paged) each
+// warp's pool rows
+inline int da_smem_words(int G, int Dh, int W, bool paged) {
   const int per = (G * Dh + DA_NSPLIT - 1) / DA_NSPLIT;
-  return DA_WARPS * (G * W + 2 * G + G * Dh) + DA_NSPLIT * (per + 2 * G);
+  return DA_WARPS * (G * W + 2 * G + G * Dh) + DA_NSPLIT * (per + 2 * G) +
+         (paged ? DA_WARPS * W : 0);
 }
 
 // MAIN: the talker's G 2 and Dh 128 as constants; otherwise G <= 8 and
-// Dh come from the arguments, with registers for 8 heads.
-template <typename KV, bool MAIN>
+// Dh come from the arguments, with registers for 8 heads. PAGED: rows
+// through the page table (K4), else the dense cache (K5).
+template <typename KV, bool MAIN, bool PAGED>
 __global__ void __cluster_dims__(DA_NSPLIT, 1, 1) __launch_bounds__(DA_THREADS)
 decode_attn_split_kernel(DaArgs a) {
   constexpr int GM = MAIN ? 2 : DA_MAXG;            // registers: q rows
@@ -146,12 +166,13 @@ decode_attn_split_kernel(DaArgs a) {
   const long long pb = a.pos64 ? reinterpret_cast<const long long*>(a.pos)[b]
                                : reinterpret_cast<const int*>(a.pos)[b];
   const int p = (int)min(max(pb, 0LL), (long long)(S - 1));
-  const int c0 = c * C;
+  const int c0 = c * C, s0 = c0 + warp * W;  // the warp's first position
   const int n = max(0, min(C, p + 1 - c0));    // the block's positions <= p
   const int nw = max(0, min(W, n - warp * W));  // the warp's
   // shared: ring[DA_WARPS][DA_NBUF][tile * Dh] | sc[DA_WARPS][G * W] |
   // wml[DA_WARPS][2 G] | wo[DA_WARPS][G * Dh] | ro[DA_NSPLIT][per] |
-  // rml[DA_NSPLIT][2 G]; rank c combines outputs [c * per, c * per + per)
+  // rml[DA_NSPLIT][2 G] | (paged) prow[DA_WARPS][W]; rank c combines
+  // outputs [c * per, c * per + per)
   const int per = (GD + DA_NSPLIT - 1) / DA_NSPLIT;
   KV* ring = reinterpret_cast<KV*>(smem) + warp * DA_NBUF * tile * Dh;
   float* sc = reinterpret_cast<float*>(reinterpret_cast<KV*>(smem) +
@@ -160,10 +181,26 @@ decode_attn_split_kernel(DaArgs a) {
   float* wo = wml + DA_WARPS * 2 * G;
   float* ro = wo + DA_WARPS * GD;
   float* rml = ro + DA_NSPLIT * per;
+  int* prow = reinterpret_cast<int*>(rml + DA_NSPLIT * 2 * G) + warp * W;
   sc += warp * G * W;
 
+  // paged: the pool row of each of the warp's positions below S (its
+  // table entry does not wait for pos; entries past pos name pages that
+  // are then never read)
+  if (PAGED) {
+    const int* tb = a.table + (long)b * a.MAXP;
+    for (int j = lane; j < min(W, S - s0); j += 32) {
+      const int s = s0 + j;
+      prow[j] = tb[s / a.psz] * a.psz + s % a.psz;
+    }
+    __syncwarp();
+  }
+
   const long KVD = (long)Hkv * Dh;
-  const long base = ((long)b * S + c0 + warp * W) * KVD + (long)h * Dh;
+  // dense: row b's position s0 + r at base + r * KVD; paged: pool row
+  // prow[r] at prow[r] * KVD + h * Dh
+  const long base = PAGED ? (long)h * Dh
+                          : ((long)b * S + s0) * KVD + (long)h * Dh;
   const int nt = (nw + tile - 1) / tile, nst = 2 * nt;  // K tiles, then V
   const int ppr = Dh * (int)sizeof(KV) / 16;  // 16-byte pieces a row: 2^k
   const int pshift = __ffs(ppr) - 1;
@@ -171,12 +208,13 @@ decode_attn_split_kernel(DaArgs a) {
   auto issue = [&](int st) {
     const bool is_v = st >= nt;
     const int r0 = (is_v ? st - nt : st) * tile, rows = min(tile, nw - r0);
-    const KV* src = (is_v ? v : k) + base + (long)r0 * KVD;
+    const KV* src = (is_v ? v : k) + base + (PAGED ? 0 : (long)r0 * KVD);
     KV* dst = ring + (st % DA_NBUF) * tile * Dh;
     for (int i = lane; i < rows * ppr; i += 32) {
       const int r = i >> pshift, j = i & (ppr - 1);
+      const long row = PAGED ? (long)prow[r0 + r] * KVD : (long)r * KVD;
       cp_async16(reinterpret_cast<char*>(dst + r * Dh) + 16 * j,
-                 reinterpret_cast<const char*>(src + r * KVD) + 16 * j);
+                 reinterpret_cast<const char*>(src + row) + 16 * j);
     }
   };
 #pragma unroll
@@ -332,53 +370,80 @@ decode_attn_split_kernel(DaArgs a) {
   }
 }
 
-template <typename KV, bool MAIN>
+template <typename KV, bool MAIN, bool PAGED>
 cudaError_t launch_decode_attn(const DaArgs& a, int B, size_t smem,
                                cudaStream_t st) {
   if (smem > 48 * 1024) {  // per device: set on every call, it is cheap
     cudaError_t e = cudaFuncSetAttribute(
-        decode_attn_split_kernel<KV, MAIN>,
+        decode_attn_split_kernel<KV, MAIN, PAGED>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return e;
   }
-  decode_attn_split_kernel<KV, MAIN>
+  decode_attn_split_kernel<KV, MAIN, PAGED>
       <<<dim3(DA_NSPLIT, a.Hkv, B), DA_THREADS, smem, st>>>(a);
   return cudaGetLastError();
 }
 
-template <typename KV>
+template <typename KV, bool PAGED>
 cudaError_t launch_kv(const DaArgs& a, int B, size_t smem, cudaStream_t st) {
   return a.Hq == 2 * a.Hkv && a.Dh == 128
-             ? launch_decode_attn<KV, true>(a, B, smem, st)
-             : launch_decode_attn<KV, false>(a, B, smem, st);
+             ? launch_decode_attn<KV, true, PAGED>(a, B, smem, st)
+             : launch_decode_attn<KV, false, PAGED>(a, B, smem, st);
 }
 
-}  // namespace
-
-extern "C" int q3_decode_attention(const void* q, int q_bf16, const void* k,
-                                   const void* v, int kv_bf16, const void* pos,
-                                   int pos64, void* out, int B, int S, int Hq,
-                                   int Hkv, int Dh, int scale_bits,
-                                   void* stream) {
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+// checks, staging tile and shared memory of either mode, then the launch
+cudaError_t launch_attention(DaArgs a, int kv_bf16, int B, bool paged,
+                             cudaStream_t st) {
+  const int S = a.S, Hq = a.Hq, Hkv = a.Hkv, Dh = a.Dh;
   const int lpr = Dh / DA_VEC;
   // q rows are read and K/V rows copied in 16-byte pieces: q, k, v and
   // every row (Dh elements) must keep that alignment
   if (B < 1 || S < 1 || Hkv < 1 || Hq % Hkv || Hq / Hkv > DA_MAXG ||
       Dh < DA_VEC || Dh % DA_VEC || Dh > DA_MAXDH || (lpr & (lpr - 1)) ||
-      reinterpret_cast<uintptr_t>(q) % 16 || reinterpret_cast<uintptr_t>(k) % 16 ||
-      reinterpret_cast<uintptr_t>(v) % 16)
-    return (int)cudaErrorInvalidValue;
+      reinterpret_cast<uintptr_t>(a.q) % 16 ||
+      reinterpret_cast<uintptr_t>(a.k) % 16 ||
+      reinterpret_cast<uintptr_t>(a.v) % 16)
+    return cudaErrorInvalidValue;
   const int G = Hq / Hkv, C = (S + DA_NSPLIT - 1) / DA_NSPLIT;
   const int W = (C + DA_WARPS - 1) / DA_WARPS;
   const size_t es = kv_bf16 ? 2 : 4;
   const int fit = (int)(DA_TILE_BYTES / (Dh * es));  // rows a buffer holds
-  const int tile = W < fit ? W : fit;
-  const size_t smem = DA_WARPS * DA_NBUF * (size_t)tile * Dh * es +
-                      (size_t)da_smem_floats(G, Dh, W) * sizeof(float);
-  if (smem > (size_t)DA_MAX_SMEM) return (int)cudaErrorInvalidValue;
-  const DaArgs a{q, q_bf16, k, v, pos, pos64, out, S, Hq, Hkv, Dh, tile,
-                 host_float(scale_bits)};
-  return (int)(kv_bf16 ? launch_kv<__nv_bfloat16>(a, B, smem, st)
-                       : launch_kv<float>(a, B, smem, st));
+  a.tile = W < fit ? W : fit;
+  const size_t smem = DA_WARPS * DA_NBUF * (size_t)a.tile * Dh * es +
+                      (size_t)da_smem_words(G, Dh, W, paged) * 4;
+  if (smem > (size_t)DA_MAX_SMEM) return cudaErrorInvalidValue;
+  if (paged)
+    return kv_bf16 ? launch_kv<__nv_bfloat16, true>(a, B, smem, st)
+                   : launch_kv<float, true>(a, B, smem, st);
+  return kv_bf16 ? launch_kv<__nv_bfloat16, false>(a, B, smem, st)
+                 : launch_kv<float, false>(a, B, smem, st);
+}
+
+}  // namespace
+
+// K5: k, v the dense cache (B, S, Hkv, Dh)
+extern "C" int q3_decode_attention(const void* q, int q_bf16, const void* k,
+                                   const void* v, int kv_bf16, const void* pos,
+                                   int pos64, void* out, int B, int S, int Hq,
+                                   int Hkv, int Dh, int scale_bits,
+                                   void* stream) {
+  const DaArgs a{q, q_bf16, k, v, pos, pos64, nullptr, 0, 0, out, S, Hq,
+                 Hkv, Dh, 0, host_float(scale_bits)};
+  return (int)launch_attention(a, kv_bf16, B, false,
+                               reinterpret_cast<cudaStream_t>(stream));
+}
+
+// K4: pool_k, pool_v (P, psz, Hkv, Dh), table (B, MAXP) int32 page ids
+extern "C" int q3_paged_attention(const void* q, int q_bf16,
+                                  const void* pool_k, const void* pool_v,
+                                  int kv_bf16, const int* table,
+                                  const void* pos, int pos64, void* out,
+                                  int B, int MAXP, int psz, int Hq, int Hkv,
+                                  int Dh, int scale_bits, void* stream) {
+  if (MAXP < 1 || psz < 1 || (long long)MAXP * psz > (1LL << 30))
+    return (int)cudaErrorInvalidValue;
+  const DaArgs a{q, q_bf16, pool_k, pool_v, pos, pos64, table, MAXP, psz,
+                 out, MAXP * psz, Hq, Hkv, Dh, 0, host_float(scale_bits)};
+  return (int)launch_attention(a, kv_bf16, B, true,
+                               reinterpret_cast<cudaStream_t>(stream));
 }

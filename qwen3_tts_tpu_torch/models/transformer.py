@@ -71,14 +71,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 def swiglu_mlp(x: torch.Tensor, gate_w, up_w, down_w,
                gateup_w=None) -> torch.Tensor:
     """down(silu(x @ gate) * (x @ up)); a fused gate|up weight runs as
-    one product."""
+    one product, int8 gate and up weights as one group."""
     if gateup_w is not None:
         gu = quant.matmul(x, gateup_w)
         inter = gu.shape[-1] // 2
         g, u = gu[..., :inter], gu[..., inter:]
     else:
-        g = quant.matmul(x, gate_w)
-        u = quant.matmul(x, up_w)
+        g, u = quant.matmul_group(x, [gate_w, up_w])
     h = (silu(g) * u).to(x.dtype)
     return quant.matmul(h, down_w).to(x.dtype)
 
@@ -131,9 +130,8 @@ def _qkv(layer: dict, x: torch.Tensor, geo: TransformerGeometry,
         qkv = quant.matmul(xf, layer["qkv_proj"])
         q, k, v = qkv[:, :QD], qkv[:, QD:QD + KVD], qkv[:, QD + KVD:]
     else:
-        q = quant.matmul(xf, layer["q_proj"])
-        k = quant.matmul(xf, layer["k_proj"])
-        v = quant.matmul(xf, layer["v_proj"])
+        q, k, v = quant.matmul_group(
+            xf, [layer["q_proj"], layer["k_proj"], layer["v_proj"]])
     q = q.to(x.dtype).reshape(B, T, geo.num_heads, geo.head_dim)
     k = k.to(x.dtype).reshape(B, T, geo.num_kv_heads, geo.head_dim)
     v = v.to(x.dtype).reshape(B, T, geo.num_kv_heads, geo.head_dim)

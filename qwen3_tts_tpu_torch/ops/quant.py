@@ -13,7 +13,7 @@ from typing import Union
 
 import torch
 
-from qwen3_tts_tpu_torch.ops.kernels.qmatmul import qmatmul
+from qwen3_tts_tpu_torch.ops.kernels.qmatmul import qmatmul, qmatmul_group
 
 
 class QTensor:
@@ -63,6 +63,19 @@ def matmul(x: torch.Tensor, w: MaybeQuant) -> torch.Tensor:
     lead = x.shape[:-1]
     out = qmatmul(x.reshape(-1, x.shape[-1]), w.q, w.scale)
     return out.reshape(*lead, w.q.shape[-1])
+
+
+def matmul_group(x: torch.Tensor, ws) -> list:
+    """[matmul(x, w) for w in ws], the same bits: int8 weights that share
+    x go to K1 as one group (ops/kernels/qmatmul.qmatmul_group: one launch
+    for up to three of them at decode rows); any dense weight makes it
+    one product a weight."""
+    if not all(isinstance(w, QTensor) for w in ws):
+        return [matmul(x, w) for w in ws]
+    lead = x.shape[:-1]
+    outs = qmatmul_group(x.reshape(-1, x.shape[-1]),
+                         [(w.q, w.scale) for w in ws])
+    return [o.reshape(*lead, o.shape[-1]) for o in outs]
 
 
 def quantize_layer_stack(layers: dict, fuse: bool = False) -> dict:

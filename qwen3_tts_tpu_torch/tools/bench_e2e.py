@@ -3,17 +3,21 @@ TTSConfig() (the full 0.6B geometry, random weights from a seed):
 
 - the int8 single-request slice: TTSEngine(quantize="int8") synthesizes
   TEXTS once to warm up, then REPS more times; wall ms/token of each
-  request (host clock, closed by a synchronise), then one request under
-  torch.profiler: device busy ms/token, kernel launches per token and
-  the host CPU time of those launch calls per token, by launch call
-  (plain and extended) with its host us a call, beside a gauge of the
-  host's speed: the host us a call of one fixed trivial launch, profiled
-  just before and just after the request;
-- the dense continuous batcher (bf16 talker with attention_impl="pallas",
-  int8 code predictor, 4 slots, decode_chunk 16): BATCH_TEXTS served
-  twice, wall and audio-seconds per wall-second of each run, then one
-  scheduler step (4 admissions and 16 loop steps) under the profiler:
-  device busy ms per loop step.
+  request (host clock, closed by a synchronise) and a digest of the
+  warm-up pass's codes (equal digests: equal codes), then one request
+  under torch.profiler: device busy ms/token, kernel launches per token
+  (all, and K1's from its launch count) and the host CPU time of those
+  launch calls per token, by launch call (plain and extended) with its
+  host us a call, beside a gauge of the host's speed: the host us a call
+  of one fixed trivial launch, profiled just before and just after the
+  request;
+- the continuous batcher (bf16 talker with attention_impl="pallas", int8
+  code predictor, 4 slots, decode_chunk 16), dense (K5) and paged (K4,
+  pages of 64): BATCH_TEXTS served twice, wall and audio-seconds per
+  wall-second of each run and its wall per loop step (scheduler steps x
+  decode_chunk), then one scheduler step (4 admissions and 16 loop
+  steps) under the profiler: device busy ms, kernel launches and the
+  attention kernel's device ms per loop step.
 
 Device busy is the union of the kernels' intervals on the device
 (``device_busy_ms``): kernels that overlap under programmatic dependent
@@ -25,12 +29,13 @@ compare two versions only in turns in one call:
     python qwen3_tts_tpu_torch/tools/bench_e2e.py --root DIR
 
 ``--root DIR`` imports qwen3_tts_tpu_torch from another checkout (the
-parent); ``--slice-only`` skips the batcher. Prints one JSON line.
+parent); ``--slice-only`` skips the batchers. Prints one JSON line.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import sys
@@ -118,8 +123,9 @@ def run_slice() -> dict:
     import torch
     from qwen3_tts_tpu_torch.config import TTSConfig
     from qwen3_tts_tpu_torch.engine.engine import TTSEngine
+    from qwen3_tts_tpu_torch.ops.kernels.qmatmul import qmatmul
     eng = TTSEngine(TTSConfig(), quantize="int8", device="cuda", seed=0)
-    walls = []
+    walls, digest = [], hashlib.sha256()
     for rep in range(REPS + 1):
         for i, text in enumerate(TEXTS):
             torch.cuda.synchronize()
@@ -129,11 +135,17 @@ def run_slice() -> dict:
             if rep:   # the first pass warms up
                 walls.append(1e3 * (time.perf_counter() - t0)
                              / max(res.n_tokens, 1))
+            else:
+                digest.update(res.codes.astype("int32").tobytes())
     gauge = [host_gauge_us()]
+    k1 = qmatmul.launches
     res, prof = _profile(lambda: eng.synthesize(TEXTS[1], seed=1))
+    k1 = qmatmul.launches - k1
     gauge.append(host_gauge_us())
     n = max(res.n_tokens, 1)
     return {"wall_ms_per_token": statistics.median(walls),
+            "codes_sha256": digest.hexdigest()[:16],
+            "k1_launches_per_token": k1 / n,
             "wall_ms_per_token_all": walls,
             "device_ms_per_token": device_busy_ms(prof) / n,
             "launches_per_token": launches(prof) / n,
@@ -154,39 +166,51 @@ def encode_text(text: str):
 
 
 def _serve(b, texts) -> tuple:
-    """Serve texts through batcher b; (wall s, audio s)."""
+    """Serve texts through batcher b; (wall s, audio s, scheduler
+    steps)."""
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     futs = [b.submit(*encode_text(t), seed=i) for i, t in enumerate(texts)]
+    steps = 0
     while not all(f.done() for f in futs):
         b.step()
+        steps += 1
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     audio = sum(len(f.result(timeout=0)[1]) for f in futs) / SAMPLES_PER_S
-    return wall, audio
+    return wall, audio, steps
 
 
-def run_batcher() -> dict:
-    import torch
+def attention_ms(prof) -> float:
+    """Device ms of the decode attention kernels in a trace (K5 and K4
+    share decode_attn_split_kernel; K4's first design was
+    paged_attn_kernel)."""
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if ("decode_attn" in e.key or "paged_attn" in e.key)
+               and str(e.device_type).endswith("CUDA")) / 1e3
+
+
+def run_batcher(params, paged: bool) -> dict:
     from qwen3_tts_tpu_torch.config import TalkerConfig, TTSConfig
-    from qwen3_tts_tpu_torch.io.weights import init_random_params
     from qwen3_tts_tpu_torch.serve.batching import ContinuousBatcher
     cfg = TTSConfig(talker=TalkerConfig(attention_impl="pallas"))
-    params = init_random_params(TTSConfig(), seed=0, dtype=torch.bfloat16,
-                                device="cuda")
+    kw = dict(paged=True, page_size=64) if paged else {}
     b = ContinuousBatcher(cfg, params, batch_size=4, decode_chunk=16,
-                          device="cuda")
+                          device="cuda", **kw)
     runs = [_serve(b, BATCH_TEXTS) for _ in range(2)]
     futs = [b.submit(*encode_text(t), seed=i)
             for i, t in enumerate(BATCH_TEXTS[:4])]
     _, prof = _profile(b.step)
     while not all(f.done() for f in futs):
         b.step()
-    return {"wall_s": [w for w, _ in runs],
-            "audio_s_per_wall_s": [a / w for w, a in runs],
-            "device_ms_per_loop_step": device_busy_ms(prof) / b.decode_chunk,
-            "launches_per_loop_step": launches(prof) / b.decode_chunk}
+    n = b.decode_chunk
+    return {"wall_s": [w for w, _, _ in runs],
+            "audio_s_per_wall_s": [a / w for w, a, _ in runs],
+            "wall_ms_per_loop_step": [1e3 * w / (k * n) for w, _, k in runs],
+            "device_ms_per_loop_step": device_busy_ms(prof) / n,
+            "launches_per_loop_step": launches(prof) / n,
+            "attention_ms_per_loop_step": attention_ms(prof) / n}
 
 
 def main() -> int:
@@ -207,7 +231,12 @@ def main() -> int:
     import qwen3_tts_tpu_torch
     out = {"root": qwen3_tts_tpu_torch.__path__[0], "slice": run_slice()}
     if not args.slice_only:
-        out["batcher"] = run_batcher()
+        from qwen3_tts_tpu_torch.config import TTSConfig
+        from qwen3_tts_tpu_torch.io.weights import init_random_params
+        params = init_random_params(TTSConfig(), seed=0, dtype=torch.bfloat16,
+                                    device="cuda")
+        out["batcher"] = run_batcher(params, paged=False)
+        out["paged_batcher"] = run_batcher(params, paged=True)
     print(json.dumps({**out, "device": torch.cuda.get_device_name(0)}))
     return 0
 

@@ -108,7 +108,7 @@ def test_paged_batcher_matches_jax_past_the_dense_cap():
     """The paged batcher (max_seq_len 64, max_tokens 100, pages of 16):
     a 30-token request generates past the dense allocation, its codes
     bit-equal to the JAX paged batcher's, and every page is recycled.
-    The weights' seed gives no greedy near-tie between K4's online
+    The weights' seed gives no greedy near-tie between K4's split
     softmax and JAX's gather-then-softmax (they differ by f32
     rounding)."""
     base = dataclasses.replace(C.tiny_tts_config(max_tokens=100),

@@ -75,6 +75,83 @@ def test_qmatmul_kernel_matches_plain(cuda, M):
                                tqm.qmatmul_plain(x, q, s), rtol=0, atol=0)
 
 
+def _k1_case(cuda, seed, M, K, Ns, dtype=torch.bfloat16):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((M, K), generator=g, device=cuda).to(dtype)
+    ws = [(torch.randint(-127, 128, (K, N), generator=g, device=cuda,
+                         dtype=torch.int8),
+           torch.rand((N,), generator=g, device=cuda) * 0.01 + 1e-3)
+          for N in Ns]
+    return x, ws
+
+
+def _k1_counts():
+    return (tqm.qmatmul.launches, tqm.qmatmul_qsplit.launches,
+            tqm.qmatmul_qmm.launches)
+
+
+# (M, K, N, x dtype, route): decode rows on qsplit at the CP prefill's and
+# the heads' widths, f32 rows too; 73 rows and an N off 16 on the qmm tile
+K1_ROUTES = [(M, 1024, 3072, torch.bfloat16, "qsplit") for M in range(1, 9)]
+K1_ROUTES += [(2, 2048, 1024, torch.bfloat16, "qsplit"),
+              (2, 3072, 1024, torch.float32, "qsplit"),
+              (4, 1024, 2048, torch.float32, "qsplit"),
+              (73, 1024, 4096, torch.bfloat16, "qmm"),
+              (9, 1024, 1024, torch.float32, "qmm"),
+              (1, 1024, 1032, torch.bfloat16, "qmm")]
+
+
+@pytest.mark.parametrize("M,K,N,dtype,route", K1_ROUTES)
+def test_qmatmul_routes_match_plain(cuda, M, K, N, dtype, route):
+    """Each route at error 0 against qmatmul_plain, one launch on the
+    route the shape picks."""
+    x, [(q, s)] = _k1_case(cuda, M + N, M, K, [N], dtype)
+    before = _k1_counts()
+    got = tqm.qmatmul(x, q, s)
+    a, b, c = (n - m for n, m in zip(_k1_counts(), before))
+    assert (a, b, c) == ((1, 1, 0) if route == "qsplit" else (1, 0, 1))
+    torch.testing.assert_close(got, tqm.qmatmul_plain(x, q, s), rtol=0,
+                               atol=0)
+
+
+@pytest.mark.parametrize("M", [1, 2, 8])
+@pytest.mark.parametrize("Ns", [[3072, 3072], [2048, 1024, 1024]],
+                         ids=["gate|up", "q|k|v"])
+def test_qmatmul_group_one_launch_matches_plain(cuda, Ns, M):
+    """The grouped entry point with 2 and 3 segments: one qsplit launch,
+    each output bit-equal to its weight's plain product."""
+    x, ws = _k1_case(cuda, M + len(Ns), M, 1024, Ns)
+    before = _k1_counts()
+    outs = tqm.qmatmul_group(x, ws)
+    assert tuple(n - m for n, m in zip(_k1_counts(), before)) == (1, 1, 0)
+    for o, (q, s) in zip(outs, ws):
+        torch.testing.assert_close(o, tqm.qmatmul_plain(x, q, s), rtol=0,
+                                   atol=0)
+
+
+def test_qmatmul_group_qsplit_refuses_runs_one_launch_a_weight(cuda):
+    """A group at prefill rows: one qmm-tile launch a weight."""
+    x, ws = _k1_case(cuda, 5, 12, 1024, [1024, 2048])
+    before = _k1_counts()
+    outs = tqm.qmatmul_group(x, ws)
+    assert tuple(n - m for n, m in zip(_k1_counts(), before)) == (2, 0, 2)
+    for o, (q, s) in zip(outs, ws):
+        torch.testing.assert_close(o, tqm.qmatmul_plain(x, q, s), rtol=0,
+                                   atol=0)
+
+
+def test_qmatmul_misaligned_x(cuda):
+    """x two bytes off 16-byte alignment (a bf16 view one element in):
+    cloned for qsplit, which reads its rows 16 bytes at a time; the same
+    bits."""
+    _, [(q, s)] = _k1_case(cuda, 17, 1, 1024, [3072])
+    g = torch.Generator(device=cuda).manual_seed(18)
+    x = torch.randn((1, 1025), generator=g, device=cuda).bfloat16()[:, 1:]
+    assert x.data_ptr() % 16 != 0
+    torch.testing.assert_close(tqm.qmatmul(x, q, s),
+                               tqm.qmatmul_plain(x, q, s), rtol=0, atol=0)
+
+
 # K3 with 4 query heads of 64 per KV head: the attention's generic
 # instantiation (more than 2 heads a group, 8 lanes a row)
 TGEO4 = tfm.TransformerGeometry(
@@ -250,9 +327,11 @@ def test_qsplit_column_block_matches_dense(cuda, R):
 
 # K5 cases (B, S, Hq, Hkv, Dh, pos): chunks of ceil(S / 8) positions, so
 # at S = 512 positions 63 / 64 and 127 / 128 sit on split boundaries; S =
-# 16 is the code predictor's cache (chunks of 2); S = 2048 walks an f32
-# chunk of 256 in tiles; G 2 at Dh 128 is the talker's (compile-time)
-# shape, at any S; every other G and Dh takes the generic instantiation
+# 16 is the code predictor's cache (chunks of 2); a warp's sub-chunk is
+# staged in tiles of 8 KB, so S = 1000 walks its 32 f32 rows of 128 in
+# two tiles and S = 4096 its 128 rows in four (bf16) or eight (f32); G 2
+# at Dh 128 is the talker's (compile-time) shape, at any S; every other G
+# and Dh takes the generic instantiation
 K5_CASES = {
     "B3-S80-G2-Dh64": (3, 80, 8, 4, 64, [0, 79, 33]),
     "B1-S512": (1, 512, 16, 8, 128, [511]),
@@ -260,6 +339,7 @@ K5_CASES = {
     "B4-S16": (4, 16, 16, 8, 128, [0, 15, 1, 2]),
     "B2-S2048-G8-Dh32": (2, 2048, 8, 1, 32, [2047, 700]),
     "B2-S1000": (2, 1000, 16, 8, 128, [999, 125]),
+    "B2-S4096": (2, 4096, 16, 8, 128, [4095, 1500]),
     "B2-S300-G4": (2, 300, 16, 4, 128, [299, 150]),
     "B3-S100-G8": (3, 100, 16, 2, 128, [99, 0, 52]),
     "B2-S64-G3": (2, 64, 12, 4, 64, [63, 9]),
@@ -324,6 +404,50 @@ def test_paged_attention_kernel_matches_plain(cuda, dtype):
         tpa.paged_attention_cuda(q, pool[0], pool[1], table, pos),
         tpa.paged_attention_plain(q, pool[0], pool[1], table, pos),
         rtol=0, atol=0)
+
+
+# K4 cases (B, psz, MAXP, P, pos) at the talker's heads (16 / 8 of 128):
+# chunks of ceil(MAXP * psz / 8) that are no multiple of the page (psz
+# 64, MAXP 9: chunks of 72; MAXP 40: sub-chunks of 80 rows, staged in
+# tiles); row 0 holds one page, its other entries the reserved page 0
+K4_CASES = {
+    "B1-psz64": (1, 64, 9, 12, [575]),
+    "B4-psz64": (4, 64, 9, 37, [0, 575, 300, 64]),
+    "B8-psz64": (8, 64, 9, 80, [63, 575, 71, 72, 143, 144, 500, 1]),
+    "B1-psz16": (1, 16, 7, 9, [111]),
+    "B4-psz16": (4, 16, 7, 30, [15, 111, 13, 14]),
+    "B8-psz16": (8, 16, 7, 60, [15, 16, 111, 27, 28, 55, 56, 0]),
+    "B2-psz64-MAXP40": (2, 64, 40, 81, [2559, 1000]),
+}
+
+
+@pytest.mark.parametrize("case", list(K4_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_is_k5_over_gathered_rows(cuda, dtype, case):
+    """K4 at error 0 against its plain version and against K5 over the
+    rows the table gathers; int32 and int64 pos alike."""
+    from qwen3_tts_tpu_torch.ops.kernels import decode_attention as tda
+    from qwen3_tts_tpu_torch.ops.kernels import paged_attention as tpa
+    B, psz, MAXP, P, pl = K4_CASES[case]
+    Hq, Hkv, Dh = 16, 8, 128
+    g = torch.Generator(device=cuda).manual_seed(B * psz)
+    q = torch.randn((B, Hq, Dh), generator=g, device=cuda).to(dtype)
+    pool = torch.randn((2, P, psz, Hkv, Dh), generator=g,
+                       device=cuda).to(dtype)
+    perm = torch.randperm(P - 1, generator=torch.Generator().manual_seed(B))
+    table = (perm[:B * MAXP] + 1).reshape(B, MAXP).to(torch.int32).to(cuda)
+    table[0, (pl[0] // psz) + 1:] = 0
+    pos = torch.tensor(pl, device=cuda, dtype=torch.int32)
+    got = tpa.paged_attention_cuda(q, pool[0], pool[1], table, pos)
+    assert got.dtype == dtype
+    torch.testing.assert_close(
+        got, tpa.paged_attention_plain(q, pool[0], pool[1], table, pos),
+        rtol=0, atol=0)
+    kv = tpa.paged_gather_kv(pool, table)
+    assert torch.equal(got, tda.decode_attention_cuda(
+        q, kv[0].contiguous(), kv[1].contiguous(), pos))
+    assert torch.equal(got, tpa.paged_attention_cuda(q, pool[0], pool[1],
+                                                     table, pos.long()))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
