@@ -7,8 +7,13 @@
    the CUDA kernels from csrc/ (build seconds).
 2. Kernels: each hand-written kernel against its plain PyTorch version on
    the card at the main paths' shapes (full 0.6B geometry, random
-   weights): K1 qmatmul (both routes: grouped qsplit for decode rows, the
-   qmm tile for prefill rows), K3 talker_step, K7 talker_step_merged (both
+   weights): K1 qmatmul (both routes: grouped qsplit for decode rows at
+   error 0; the tensor-core tile for prefill rows within its normalised-
+   error bound of 2^-16, equal bits on a second launch, beside
+   torch._weight_int8pack_mm and, for reference, cuBLAS over the
+   dequantized weight; then the int8 talker's prefill at full geometry on
+   one slice prefix with K1 on the tile against the same with K1's plain
+   version, cosine >= 0.99), K3 talker_step, K7 talker_step_merged (both
    variants, also against K3), K2 cp_decode, K5 decode_attention, K4
    paged_attention (also against K5 over the gathered rows, B = 4 and 8),
    K6 decode_attention_kv_int8, with the stated tolerances; the time of
@@ -28,7 +33,8 @@
 3. Slice: TTSEngine(TTSConfig(), quantize="int8") synthesizes three short
    texts; each request must give codes in range, n_tokens * 1920 finite
    samples, and launch K1 (on both routes), K2 and K3; K1 at most 23
-   launches a decode step plus 4 a talker layer a request (the prefill).
+   launches a decode step plus 4 a talker layer a request (the prefill),
+   and the tile exactly 4 a talker layer a request.
 4. Profile: one more request under torch.profiler, after the checked
    ones: device time by kernel, device busy time, launches per token.
 5. Batcher: ContinuousBatcher (bf16 talker, int8 code predictor, 4 slots)
@@ -105,69 +111,152 @@ def nbytes(*ts) -> int:
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def phase_qmatmul(card: str) -> dict:
-    """K1 at the slice's shapes (tools/bench_qmatmul) against its plain
-    version, error 0 on both routes (qsplit for decode rows, grouped; the
-    qmm tile for prefill rows), each case on the route its shape picks;
-    then the time of each case (CUDA-graph replay, weights from HBM) and,
-    for codec_head, the plain version's, the bound and the library's
-    int8 product."""
+def phase_qmatmul(card: str) -> list:
+    """K1 at the slice's shapes (tools/bench_qmatmul): each case on the
+    route its shape picks, launched twice (equal bits); qsplit (decode
+    rows, grouped) at error 0 against its plain version, the tile
+    (prefill rows) within TILE_TOL of the product summed in float64, qmm's
+    own error beside it. Then the time of each case (CUDA-graph replay,
+    weights from HBM) beside its bound and, past 8 rows, the library's
+    int8 product and cuBLAS over the dequantized weight; the plain
+    version's time at codec_head and at the talker prefill's q|k|v, R =
+    41. Returns the qsplit and the tile entries."""
     import torch
     from qwen3_tts_tpu_torch.ops.kernels import qmatmul as tqm
     from qwen3_tts_tpu_torch.tools import bench_qmatmul
     g = torch.Generator(device="cuda").manual_seed(1)
-    worst = 0.0
+    worst = {"qsplit": 0.0, "tile": 0.0}
+    worst_norm = plain_norm = 0.0
     for what, M, K, Ns in bench_qmatmul.CASES:
         x, ws = bench_qmatmul.inputs(g, M, K, Ns)
-        route = "qsplit" if tqm.on_qsplit(M, K, Ns) else "qmm"
-        n0 = (tqm.qmatmul_qsplit.launches, tqm.qmatmul_qmm.launches)
+        route = "qsplit" if tqm.on_qsplit(M, K, Ns) else "tile"
+        n0 = (tqm.qmatmul_qsplit.launches, tqm.qmatmul_tile.launches)
         got = tqm.qmatmul_group(x, ws)
+        again = tqm.qmatmul_group(x, ws)
         n1 = (tqm.qmatmul_qsplit.launches - n0[0],
-              tqm.qmatmul_qmm.launches - n0[1])
+              tqm.qmatmul_tile.launches - n0[1])
         torch.cuda.synchronize()
         err = max(float((o - tqm.qmatmul_plain(x, q, s)).abs().max())
                   for o, (q, s) in zip(got, ws))
-        print(f"K1 qmatmul {what} ({M},{K})x({K},{'|'.join(map(str, Ns))}) "
-              f"[{route}, launches qsplit/qmm {n1}]: max_abs_err {err:.3e}")
-        check(err == 0, f"K1 {what} disagrees with its plain version")
-        check(n1 == ((1, 0) if route == "qsplit" else (0, len(Ns))),
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        line = (f"K1 qmatmul {what} ({M},{K})x({K},{'|'.join(map(str, Ns))})"
+                f" [{route}, launches qsplit/tile {n1} in two calls]: "
+                f"max_abs_err {err:.3e}, repeat equal {same}")
+        if route == "tile":
+            norm = max(tqm.qmatmul_error(o, x, q, s)
+                       for o, (q, s) in zip(got, ws))
+            pnorm = max(tqm.qmatmul_error(tqm.qmatmul_plain(x, q, s), x, q,
+                                          s) for q, s in ws)
+            line += (f", normalised {norm:.3e} (qmm {pnorm:.3e}; bound "
+                     f"{tqm.TILE_TOL:.3e})")
+            check(norm <= tqm.TILE_TOL and all(
+                bool(torch.isfinite(o).all()) for o in got),
+                f"K1 {what}: the tile is past its bound ({norm:.3e})")
+            worst_norm, plain_norm = max(worst_norm, norm), max(plain_norm,
+                                                                pnorm)
+        else:
+            check(err == 0, f"K1 {what} disagrees with its plain version")
+        print(line)
+        check(same, f"K1 {what}: two launches gave different bits")
+        check(n1 == ((2, 0) if route == "qsplit" else (0, 2 * len(Ns))),
               f"K1 {what}: launches {n1} on route {route}")
-        worst = max(worst, err)
-    rows = bench_qmatmul.run()
+        worst[route] = max(worst[route], err)
+    rows = bench_qmatmul.run(library=True)
     for r in rows:
+        lib = ""
+        if "library_ms" in r:
+            lib = (f"; _weight_int8pack_mm {r['library_ms']} ms, cuBLAS "
+                   f"bf16 (reference) {r['cublas_bf16_ms']:.5f} ms")
         print(f"  time {r['case']}: kernel {r['ms']:.5f} ms device (CUDA graph "
               f"replay, weights from HBM; {r['launches_a_call']} launches, "
-              f"{r['weight_gb_s']:.0f} GB/s of int8 weights) [{card}]")
-    M, K, N = 1, 1024, 3072
-    x, [(q, s)] = bench_qmatmul.inputs(g, M, K, [N])
-    qs = [q] + [q.clone() for _ in range((64 << 20) // (K * N))]
-    nxt = itertools.cycle(qs).__next__
-    t_p = time_ms(lambda: tqm.qmatmul_plain(x, nxt(), s), 50, graph=True)
-    print(f"  plain codec_head: {t_p:.4f} ms [{card}]")
-    b_ms, b_by = least_time(nbytes(x, q, s) + M * N * 4, 2.0 * M * K * N,
-                            989e12)
-    # the library's weight-only int8 product, where this torch has a CUDA
-    # kernel for it: w (N, K) int8, bf16 scales
-    lib = None
-    try:
-        qt, s16 = q.T.contiguous(), s.bfloat16()
-        qs = [qt] + [qt.clone() for _ in range((64 << 20) // (K * N))]
+              f"{r['weight_gb_s']:.0f} GB/s of int8 weights); bound "
+              f"{r['bound_ms']:.5f} ms ({r['bound_by']}, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}%){lib} [{card}]")
+    by_case = {r["case"]: r for r in rows}
+    plain = {}
+    for case in ("codec_head", "talker prefill q|k|v R=41"):
+        _, M, K, Ns = next(c for c in bench_qmatmul.CASES if c[0] == case)
+        x, [(q, s)] = bench_qmatmul.inputs(g, M, K, Ns)
+        qs = [q] + [q.clone() for _ in range((64 << 20) // (K * Ns[0]))]
         nxt = itertools.cycle(qs).__next__
-        lib = time_ms(lambda: torch._weight_int8pack_mm(x, nxt(), s16), 50,
-                      graph=True)
+        plain[case] = time_ms(lambda: tqm.qmatmul_plain(x, nxt(), s), 20,
+                              graph=True)
         del qs
-    except (RuntimeError, AttributeError, NotImplementedError) as e:
-        print(f"  torch._weight_int8pack_mm on CUDA: unavailable "
-              f"({str(e).splitlines()[0][:120]})")
-    print(f"  bound (1,1024)x(1024,3072): {b_ms:.5f} ms ({b_by}); library "
-          f"_weight_int8pack_mm {lib} ms [{card}]")
-    return {"name": "qmatmul", "route": "cuda",
-            "source": "qwen3_tts_tpu_torch/csrc/qmatmul.cu",
-            "replaces": "qwen3_tts_tpu/ops/pallas/qmatmul.py:48",
-            "max_abs_err": worst, "ms": rows[0]["ms"],
-            "plain_ms": t_p, "bound_ms": b_ms,
-            "bound_by": b_by, "library_ms": lib,
-            "shape": "(1,1024)x(1024,3072) on qsplit", "cases": rows}
+        print(f"  plain {case}: {plain[case]:.4f} ms [{card}]")
+    head, tile = by_case["codec_head"], by_case["talker prefill q|k|v R=41"]
+    x, [(q, s)] = bench_qmatmul.inputs(g, 1, 1024, [3072])
+    lib = bench_qmatmul.library_ms(x, q, s)[0]
+    print(f"  codec_head _weight_int8pack_mm {lib} ms [{card}]")
+    return [{"name": "qmatmul", "route": "cuda",
+             "source": "qwen3_tts_tpu_torch/csrc/qmatmul.cu",
+             "replaces": "qwen3_tts_tpu/ops/pallas/qmatmul.py:48",
+             "max_abs_err": worst["qsplit"], "ms": head["ms"],
+             "plain_ms": plain["codec_head"], "bound_ms": head["bound_ms"],
+             "bound_by": head["bound_by"], "library_ms": lib,
+             "shape": "(1,1024)x(1024,3072) on qsplit",
+             "cases": [r for r in rows if r["M"] <= 8]},
+            {"name": "qmatmul_tile", "route": "cuda",
+             "source": "qwen3_tts_tpu_torch/csrc/qmatmul.cu",
+             "replaces": "qwen3_tts_tpu/ops/pallas/qmatmul.py:48",
+             "max_abs_err": worst["tile"],
+             "max_normalised_err": worst_norm,
+             "qmm_normalised_err": plain_norm, "tolerance": tqm.TILE_TOL,
+             "ms": tile["ms"], "plain_ms": plain["talker prefill q|k|v R=41"],
+             "bound_ms": tile["bound_ms"], "bound_by": tile["bound_by"],
+             "library_ms": tile.get("library_ms"),
+             "shape": "(41,1024)x(1024,4096) talker prefill q|k|v",
+             "cases": [r for r in rows if r["M"] > 8]}]
+
+
+def phase_prefill_tile(eng, card: str) -> None:
+    """The int8 talker's prefill at full geometry on one slice prefix
+    (TEXTS[0]: a text bucket of 32 and 9 prefix positions) with K1 on the
+    tile, then again on the same CUDA tensors with quant's K1 swapped for
+    its plain version inside this check: the cosine and the largest
+    relative error of the final hidden (after the final norm). The tile
+    must run 4 a layer, and the cosine be >= 0.99."""
+    import torch
+    from qwen3_tts_tpu_torch.models import talker as tk
+    from qwen3_tts_tpu_torch.models import transformer as tfm
+    from qwen3_tts_tpu_torch.ops import quant
+    from qwen3_tts_tpu_torch.ops.kernels import qmatmul as tqm
+    cfg = eng.cfg.talker
+    with torch.inference_mode():
+        ids, n_text = eng._encode_text(TEXTS[0])
+        prefix, plen = tk.build_prefix(eng._tp, ids, n_text)
+        P = prefix.shape[0]
+        positions = torch.arange(P, device="cuda")[None]
+        mask = tfm.causal_mask(1, P, plen.reshape(1))
+        geo = tfm.geometry_of(cfg)
+
+        def hidden():
+            h, _ = tfm.forward_prefill(eng._tp["layers"], prefix[None],
+                                       positions, mask, geo)
+            return tfm.rms_norm(h, eng._tp["final_norm"],
+                                cfg.rms_norm_eps).float()
+
+        n0 = tqm.qmatmul_tile.launches
+        got = hidden()
+        torch.cuda.synchronize()
+        tiles = tqm.qmatmul_tile.launches - n0
+        kernel_k1 = quant.qmatmul
+        quant.qmatmul = tqm.qmatmul_plain
+        try:
+            ref = hidden()
+        finally:
+            quant.qmatmul = kernel_k1
+        torch.cuda.synchronize()
+    cos = float(torch.nn.functional.cosine_similarity(
+        got.flatten().double(), ref.flatten().double(), dim=0))
+    rel = float((got - ref).abs().max() / ref.abs().max())
+    print(f"prefill on the tile: R={P} rows, {tiles} tile launches; final "
+          f"hidden against K1's plain version: cosine {cos:.7f}, max rel "
+          f"err {rel:.3e} [{card}]")
+    check(P == 41, f"the slice prefix has {P} rows, not 41")
+    check(tiles == 4 * cfg.num_layers,
+          f"the prefill launched the tile {tiles} times")
+    check(bool(torch.isfinite(got).all()), "non-finite prefill hidden")
+    check(cos >= 0.99, f"prefill on the tile: cosine {cos:.5f} < 0.99")
 
 
 # K3 and K7 check positions at S = 512: the attention's chunks are 64
@@ -412,7 +501,7 @@ def phase_kernel_profiles(eng, card: str, k3: dict, k2: dict) -> None:
 # chunks of 8 steps, so a request's steps round its tokens up to 8):
 # codec_head, lm_heads[0] and the code predictor's 2-token prefill (5
 # layers x q|k|v, o, gate|up, down), all on qsplit: 22; the talker
-# prefill adds 4 a layer a request (qmm tile)
+# prefill adds 4 a layer a request (the tile)
 K1_PER_STEP = 23
 
 
@@ -443,17 +532,19 @@ def phase_slice(eng, card: str, counters: dict) -> dict:
         check(len(res.audio_int16) == n * 1920, "duration math broken")
         check(bool(np.isfinite(res.audio_int16.astype(np.float64)).all()),
               "non-finite audio")
-        for k in ("qmatmul", "qmatmul_qsplit", "qmatmul_qmm", "talker_step",
+        for k in ("qmatmul", "qmatmul_qsplit", "qmatmul_tile", "talker_step",
                   "cp_decode"):
             check(grew[k] > 0, f"kernel {k} was not launched by request {i}")
+        check(grew["qmatmul_tile"] == 4 * eng.cfg.talker.num_layers,
+              f"request {i} launched the tile {grew['qmatmul_tile']} times")
         tokens += n
     k1 = counters["qmatmul"].launches
     steps = counters["talker_step"].launches   # one K3 launch a step
     cap = K1_PER_STEP * steps + 4 * eng.cfg.talker.num_layers * len(TEXTS)
     print(f"slice: K1 {k1} launches for {steps} decode steps ({tokens} "
           f"tokens kept; {k1 / steps:.2f} a step; qsplit "
-          f"{counters['qmatmul_qsplit'].launches}, qmm tile "
-          f"{counters['qmatmul_qmm'].launches}); at most {cap} "
+          f"{counters['qmatmul_qsplit'].launches}, tile "
+          f"{counters['qmatmul_tile'].launches}); at most {cap} "
           f"({K1_PER_STEP} a step and 4 a talker layer a request)")
     check(k1 <= cap, f"K1 launched {k1} times in the slice (cap {cap})")
     return {k: fn.launches for k, fn in counters.items()}
@@ -1090,7 +1181,7 @@ def main() -> int:
     from qwen3_tts_tpu_torch.ops.kernels.paged_attention import (
         paged_decode_attention)
     from qwen3_tts_tpu_torch.ops.kernels.qmatmul import (
-        qmatmul, qmatmul_qmm, qmatmul_qsplit)
+        qmatmul, qmatmul_qsplit, qmatmul_tile)
     from qwen3_tts_tpu_torch.ops.kernels.talker_merged import (
         talker_decode_step_merged, talker_decode_step_mergedvec)
     from qwen3_tts_tpu_torch.ops.kernels.talker_step import (
@@ -1102,15 +1193,16 @@ def main() -> int:
     print(f"engine (random int8 weights, full geometry) ready in "
           f"{time.perf_counter() - t0:.1f} s")
 
-    kernels = [phase_qmatmul(card), phase_talker_step(eng, card),
+    kernels = [*phase_qmatmul(card), phase_talker_step(eng, card),
                *phase_talker_merged(eng, card), phase_cp_decode(eng, card),
                phase_decode_attention(card), phase_paged_attention(card),
                phase_kv_int8(card)]
+    phase_prefill_tile(eng, card)
     by_name = {k["name"]: k for k in kernels}
     phase_kernel_profiles(eng, card, by_name["talker_step"],
                           by_name["cp_decode"])
     counters = {"qmatmul": qmatmul, "qmatmul_qsplit": qmatmul_qsplit,
-                "qmatmul_qmm": qmatmul_qmm,
+                "qmatmul_tile": qmatmul_tile,
                 "talker_step": talker_decode_step_fused,
                 "cp_decode": cp_decode_steps,
                 "decode_attention": decode_attention,

@@ -20,7 +20,7 @@ import torch.nn.functional as F
 # masking constant for attention and sampling (Q3_NEG in common.cuh)
 NEG = -1e30
 WARP = 32
-QMM_KSLICES = 128     # k-slices of a qmm tile (QMM_KSLICES in common.cuh)
+QMM_KSLICES = 128     # k-slices of qsplit's order (QMM_KSLICES in common.cuh)
 ATT_THREADS = 512     # attention block threads (ATT_THREADS in common.cuh)
 
 
@@ -106,11 +106,13 @@ def rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor):
 def qmm(x: torch.Tensor, w: torch.Tensor,
         s: torch.Tensor = None) -> torch.Tensor:
     """K0 qmm: bf16(x) (R, K) @ bf16(w) (K, N) [* per-column scale s]
-    -> f32 (R, N), summed as qmm_tile does: k-slice ks runs over
+    -> f32 (R, N), summed as qsplit (csrc/common.cuh) does, and hence
+    K1's decode rows, K2 and K3: k-slice ks runs over
     k = ks, ks + QMM_KSLICES, ... (each product of a bf16 and an int8 or
     bf16 is exact in f32), slices 4g..4g+3 add pairwise, and the groups
     add in order. w is int8 (with s) or a dense float weight (rounded to
-    bf16)."""
+    bf16). K1's tensor-core tile for prefill rows sums in the MMA's order
+    and is held to a bound against it (ops/kernels/qmatmul.qmatmul_error)."""
     R, K = x.shape
     xb = _pad_last(bf16(x.float()), QMM_KSLICES)
     wb = w.float() if w.dtype == torch.int8 else bf16(w.float())

@@ -43,7 +43,7 @@ PROJ = ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj", "up_proj",
 
 def kernel_kind(name: str) -> str:
     """A profiler kernel name without namespaces and argument list:
-    ``qmm_kernel<1, signed char, 0>``."""
+    ``qsplit_kernel<1, signed char, 0>``."""
     name = name.replace("(anonymous namespace)::", "")
     name = re.sub(r"^void ", "", name)
     depth, cut = 0, len(name)

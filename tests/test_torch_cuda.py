@@ -1,6 +1,10 @@
 """The port's CUDA kernels against their plain PyTorch versions, on the
 card, at small shapes. Each plain version adds up in its kernel's order,
-so kernel and plain version must agree bit for bit.
+so kernel and plain version must agree bit for bit; the one exception is
+K1's tensor-core tile for prefill rows, whose MMA sums in the hardware's
+order: it is held to the normalised-error bound ``qmatmul.TILE_TOL``
+(2^-16 of the sum of |terms|, against the product summed in float64),
+beside qmm's own error, and to equal bits on every launch.
 
 Every test skips where there is no CUDA device. The file imports no jax,
 so it also runs on a GPU machine without it (the suite's conftest.py
@@ -64,6 +68,19 @@ def _stack(rng, geo, dev, scale=0.02):
             "down_proj": w(L, I, H)}
 
 
+def _assert_k1(got, x, q, s, route):
+    """qsplit bit-equal to qmatmul_plain; the tile within TILE_TOL of the
+    float64 product, as qmm is."""
+    if route == "qsplit":
+        torch.testing.assert_close(got, tqm.qmatmul_plain(x, q, s), rtol=0,
+                                   atol=0)
+    else:
+        assert torch.isfinite(got).all()
+        assert tqm.qmatmul_error(got, x, q, s) <= tqm.TILE_TOL
+        assert tqm.qmatmul_error(tqm.qmatmul_plain(x, q, s), x, q,
+                                 s) <= tqm.TILE_TOL
+
+
 @pytest.mark.parametrize("M", [1, 2, 73])
 def test_qmatmul_kernel_matches_plain(cuda, M):
     g = torch.Generator(device=cuda).manual_seed(M)
@@ -71,8 +88,7 @@ def test_qmatmul_kernel_matches_plain(cuda, M):
     q = torch.randint(-127, 128, (1024, 3072), generator=g, device=cuda,
                       dtype=torch.int8)
     s = torch.rand((3072,), generator=g, device=cuda) * 0.01 + 1e-3
-    torch.testing.assert_close(tqm.qmatmul(x, q, s),
-                               tqm.qmatmul_plain(x, q, s), rtol=0, atol=0)
+    _assert_k1(tqm.qmatmul(x, q, s), x, q, s, tqm.route(M, 1024, 3072))
 
 
 def _k1_case(cuda, seed, M, K, Ns, dtype=torch.bfloat16):
@@ -87,31 +103,76 @@ def _k1_case(cuda, seed, M, K, Ns, dtype=torch.bfloat16):
 
 def _k1_counts():
     return (tqm.qmatmul.launches, tqm.qmatmul_qsplit.launches,
-            tqm.qmatmul_qmm.launches)
+            tqm.qmatmul_tile.launches)
 
 
 # (M, K, N, x dtype, route): decode rows on qsplit at the CP prefill's and
-# the heads' widths, f32 rows too; 73 rows and an N off 16 on the qmm tile
+# the heads' widths, f32 rows too; 73 rows and an N off 16 on the tile
 K1_ROUTES = [(M, 1024, 3072, torch.bfloat16, "qsplit") for M in range(1, 9)]
 K1_ROUTES += [(2, 2048, 1024, torch.bfloat16, "qsplit"),
               (2, 3072, 1024, torch.float32, "qsplit"),
               (4, 1024, 2048, torch.float32, "qsplit"),
-              (73, 1024, 4096, torch.bfloat16, "qmm"),
-              (9, 1024, 1024, torch.float32, "qmm"),
-              (1, 1024, 1032, torch.bfloat16, "qmm")]
+              (73, 1024, 4096, torch.bfloat16, "tile"),
+              (9, 1024, 1024, torch.float32, "tile"),
+              (1, 1024, 1032, torch.bfloat16, "tile")]
 
 
 @pytest.mark.parametrize("M,K,N,dtype,route", K1_ROUTES)
 def test_qmatmul_routes_match_plain(cuda, M, K, N, dtype, route):
-    """Each route at error 0 against qmatmul_plain, one launch on the
-    route the shape picks."""
+    """qsplit at error 0 against qmatmul_plain, the tile within its bound;
+    one launch on the route the shape picks."""
     x, [(q, s)] = _k1_case(cuda, M + N, M, K, [N], dtype)
     before = _k1_counts()
     got = tqm.qmatmul(x, q, s)
     a, b, c = (n - m for n, m in zip(_k1_counts(), before))
     assert (a, b, c) == ((1, 1, 0) if route == "qsplit" else (1, 0, 1))
-    torch.testing.assert_close(got, tqm.qmatmul_plain(x, q, s), rtol=0,
-                               atol=0)
+    _assert_k1(got, x, q, s, route)
+
+
+# the tile's shapes: the talker prefill's products at the slice's R = 41,
+# R = 73 and the largest bucket's 265, rows on and off the 16-row steps
+# and the 64-row tiles, an N off 16 and off 64, K past 64-k stages
+K1_TILE = [(9, 1024, 1024), (16, 2048, 1032), (41, 1024, 4096),
+           (41, 2048, 1024), (41, 1024, 6144), (41, 3072, 1024),
+           (64, 1024, 4096), (73, 1024, 4096), (265, 1024, 4096),
+           (265, 2048, 1024), (265, 1024, 6144), (265, 3072, 1024),
+           (100, 48, 40), (41, 1040, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32],
+                         ids=["bf16", "f32"])
+@pytest.mark.parametrize("M,K,N", K1_TILE)
+def test_qmatmul_tile_within_bound_and_repeatable(cuda, M, K, N, dtype):
+    """The tile within TILE_TOL of the float64 product (qmm beside it),
+    one tile launch a call, and the same bits on a second launch (the K
+    split adds its partials in rank order, without atomics)."""
+    x, [(q, s)] = _k1_case(cuda, M * 7 + N, M, K, [N], dtype)
+    assert tqm.route(M, K, N) == "tile"
+    before = _k1_counts()
+    a = tqm.qmatmul(x, q, s)
+    b = tqm.qmatmul(x, q, s)
+    assert tuple(n - m for n, m in zip(_k1_counts(), before)) == (2, 0, 2)
+    _assert_k1(a, x, q, s, "tile")
+    assert torch.equal(a, b)
+
+
+def test_qmatmul_tile_refuses_k_off_16(cuda):
+    """K % 16 != 0 past 8 rows is on no route: ValueError, no launch."""
+    x, [(q, s)] = _k1_case(cuda, 21, 41, 1000, [256])
+    before = _k1_counts()
+    with pytest.raises(ValueError):
+        tqm.qmatmul(x, q, s)
+    assert _k1_counts() == before
+
+
+def test_qmatmul_tile_misaligned_x(cuda):
+    """x two bytes off 16-byte alignment at prefill rows: cloned, the tile
+    within its bound."""
+    _, [(q, s)] = _k1_case(cuda, 23, 41, 1024, [4096])
+    g = torch.Generator(device=cuda).manual_seed(24)
+    x = torch.randn((41, 1025), generator=g, device=cuda).bfloat16()[:, 1:]
+    assert x.data_ptr() % 16 != 0
+    _assert_k1(tqm.qmatmul(x, q, s), x, q, s, "tile")
 
 
 @pytest.mark.parametrize("M", [1, 2, 8])
@@ -130,14 +191,14 @@ def test_qmatmul_group_one_launch_matches_plain(cuda, Ns, M):
 
 
 def test_qmatmul_group_qsplit_refuses_runs_one_launch_a_weight(cuda):
-    """A group at prefill rows: one qmm-tile launch a weight."""
+    """A group at prefill rows: one tile launch a weight, each within the
+    tile's bound."""
     x, ws = _k1_case(cuda, 5, 12, 1024, [1024, 2048])
     before = _k1_counts()
     outs = tqm.qmatmul_group(x, ws)
     assert tuple(n - m for n, m in zip(_k1_counts(), before)) == (2, 0, 2)
     for o, (q, s) in zip(outs, ws):
-        torch.testing.assert_close(o, tqm.qmatmul_plain(x, q, s), rtol=0,
-                                   atol=0)
+        _assert_k1(o, x, q, s, "tile")
 
 
 def test_qmatmul_misaligned_x(cuda):

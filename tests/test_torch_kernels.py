@@ -79,7 +79,7 @@ def _rope_tables(S, dh):
 # K1 qmatmul
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("M", [1, 5, 19])
+@pytest.mark.parametrize("M", [1, 5, 19, 41, 73])
 def test_qmatmul_plain_matches_pallas(M):
     rng = np.random.default_rng(M)
     K, N = 96, 512
