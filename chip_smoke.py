@@ -16,7 +16,9 @@
    version, cosine >= 0.99), K3 talker_step, K7 talker_step_merged (both
    variants, also against K3), K2 cp_decode, K5 decode_attention, K4
    paged_attention (also against K5 over the gathered rows, B = 4 and 8),
-   K6 decode_attention_kv_int8, with the stated tolerances; the time of
+   K6 decode_attention_kv_int8 (the int8 mode of K5's body: S 512, 577
+   and 8192, timed beside K5 at the same positions), with the stated
+   tolerances; the time of
    each beside its plain version's, its bound (bytes or operations at the
    card's published peaks) and, where one PyTorch call computes the same
    function, that call's time (K5 at the four shapes of
@@ -26,10 +28,13 @@
    (qwen3_tts_tpu_torch/tools/bench_talker_step). K2 at B = 1, 4 and 8:
    greedy tokens, the last step's logits and residual row bit for bit,
    its product alone against qmm at every width of a step, and its time
-   (qwen3_tts_tpu_torch/tools/bench_cp_decode). Once every kernel is
-   timed, K3's and K2's launches and per-kernel breakdown under
-   torch.profiler (a profiler session slows later chains of dependent
-   launches in the process by a few percent).
+   (qwen3_tts_tpu_torch/tools/bench_cp_decode). Then the port of
+   tools/dev/bench_kv_int8.py (qwen3_tts_tpu_torch.tools.bench_kv_int8):
+   the bf16 and the int8-KV talker decode loops (K6) at B = 4 and 8; the
+   hidden cosine between them must stay >= 0.99. Once every kernel and
+   that probe are timed, K3's and K2's launches and per-kernel breakdown
+   under torch.profiler (a profiler session slows later chains of
+   dependent launches in the process by a few percent).
 3. Slice: TTSEngine(TTSConfig(), quantize="int8") synthesizes three short
    texts; each request must give codes in range, n_tokens * 1920 finite
    samples, and launch K1 (on both routes), K2 and K3; K1 at most 23
@@ -43,13 +48,10 @@
    with its free pages handed out in reverse order), then one scheduler
    step of each under torch.profiler.
 6. synthesize_batch: 3 texts in one batched decode (bf16, K5).
-7. The port of tools/dev/bench_kv_int8.py (qwen3_tts_tpu_torch.tools.
-   bench_kv_int8): the bf16 and the int8-KV talker decode loops (K6) at
-   B = 4 and 8; the hidden cosine between them must stay >= 0.99.
-8. The port of tools/dev/microbench_talker_merged.py: run_steps with the
+7. The port of tools/dev/microbench_talker_merged.py: run_steps with the
    talker step swapped for K3, K7 merged and K7 mergedvec; equal codes,
    each variant launching its own kernel and no other.
-9. One JSON line of per-kernel results, then the card line, then
+8. One JSON line of per-kernel results, then the card line, then
    {"ok": true, "device": {...}} as the last line.
 
 Every path is driven with the launch counters set to 0 just before it and
@@ -826,51 +828,56 @@ def phase_talker_merged(eng, card: str) -> list:
     return out
 
 
-def phase_kv_int8(card: str) -> dict:
-    """K6 at the talker's geometry (Hq 16, Hkv 8, Dh 128, S 512) against
-    its plain version, f32 and bf16 q, B = 1, 4 and 8, positions with 0
-    and 511 (error 0 expected: the plain version adds up in the kernel's
-    order); rows past pos poisoned change no bit; the time at B = 4 bf16
-    beside the bound. No single PyTorch call reads an int8 cache with
-    per-row scales: SDPA over the same rows dequantized to bf16 is
-    printed as a reference only."""
+def phase_kv_int8(card: str, k5_shapes: list) -> dict:
+    """K6 (the int8 mode of K5's split) at the talker's geometry (Hq 16,
+    Hkv 8, Dh 128) against its plain version, f32 and bf16 q: S 512 at B
+    = 1, 4 and 8 (positions with 0 and 511, and every row at 511), S 577
+    (ragged chunks of 73) and S 8192 (error 0 expected: the plain version
+    is K5's over the dequantized rows); rows past pos poisoned change no
+    bit. Then its time at the shapes of tools/bench_decode_attention
+    (int8 K/V from HBM, CUDA-graph replay) beside its bound and K5's time
+    at the same positions (``k5_shapes``, this run's). No single PyTorch
+    call reads an int8 cache with per-row scales: SDPA over the rows
+    dequantized to bf16 is printed as a reference only."""
     import torch
-    import torch.nn.functional as F
     from qwen3_tts_tpu_torch.ops.kernels.kv_int8 import (
         decode_attention_kv_int8_cuda, decode_attention_kv_int8_plain,
-        dequantize_kv_rows, quantize_kv_rows)
+        quantize_kv_rows)
+    from qwen3_tts_tpu_torch.tools import bench_decode_attention
     g = torch.Generator(device="cuda").manual_seed(11)
-    S, Hq, Hkv, Dh = 512, 16, 8, 128
-    POS = [0, S - 1, 200, 37, 450, 1, 300, 64]
+    Hq, Hkv, Dh = 16, 8, 128
+    POS = [0, 511, 200, 37, 450, 1, 300, 64]
+    CASES = ((512, [511]), (512, POS[:4]), (512, POS), (512, [511] * 8),
+             (577, [576, 72, 73]), (8192, [8191, 3000]))
 
-    def cache(B):
+    def cache(B, S):
         kf = torch.randn((B, Hkv, S, Dh), generator=g, device="cuda") * 0.5
         vf = torch.randn((B, Hkv, S, Dh), generator=g, device="cuda") * 0.5
         return kf, vf
 
-    def pos_of(B):
-        return torch.tensor(POS[:B] if B > 1 else [S - 1], device="cuda")
-
     worst = 0.0
     for dtype in (torch.float32, torch.bfloat16):
-        for B in (1, 4, 8):
+        for S, pl in CASES:
+            B = len(pl)
             q = torch.randn((B, Hq, Dh), generator=g, device="cuda").to(dtype)
-            kf, vf = cache(B)
-            args = (q, *quantize_kv_rows(kf), *quantize_kv_rows(vf), pos_of(B))
+            kf, vf = cache(B, S)
+            args = (q, *quantize_kv_rows(kf), *quantize_kv_rows(vf),
+                    torch.tensor(pl, device="cuda"))
             ref = decode_attention_kv_int8_plain(*args)
             got = decode_attention_kv_int8_cuda(*args)
             torch.cuda.synchronize()
             err = float((got.float() - ref.float()).abs().max())
-            print(f"K6 decode_attention_kv_int8 {str(dtype)[6:]} B={B} pos="
-                  f"{args[-1].tolist()}: max_abs_err {err:.3e}")
+            print(f"K6 decode_attention_kv_int8 {str(dtype)[6:]} S={S} B={B} "
+                  f"pos={pl}: max_abs_err {err:.3e}")
             check(got.dtype == dtype and err == 0,
-                  f"K6 disagrees with its plain version ({dtype}, B={B})")
+                  f"K6 disagrees with its plain version ({dtype}, S={S}, "
+                  f"B={B})")
             worst = max(worst, err)
     # poison: rows past pos at +-99 before quantizing change no bit
     B = 4
     q = torch.randn((B, Hq, Dh), generator=g, device="cuda").bfloat16()
-    kf, vf = cache(B)
-    pos = pos_of(B)
+    kf, vf = cache(B, 512)
+    pos = torch.tensor(POS[:B], device="cuda")
     a = decode_attention_kv_int8_cuda(q, *quantize_kv_rows(kf),
                                       *quantize_kv_rows(vf), pos)
     for b, p in enumerate(pos.tolist()):
@@ -882,42 +889,32 @@ def phase_kv_int8(card: str) -> dict:
                        a)
     print(f"K6 rows past pos poisoned (+-99): output unchanged: {same}")
     check(same, "K6 reads rows past pos")
-    # time at B = 4, bf16 q: 28 layers' caches (117 MB), so each call
-    # streams its cache from HBM as in a decode step
-    caches = [(kq, ks, vq, vs)] + [tuple(t.clone() for t in (kq, ks, vq, vs))
-                                   for _ in range(27)]
-    it = itertools.cycle(range(28)).__next__
-    t_k = time_ms(lambda: decode_attention_kv_int8_cuda(q, *caches[it()],
-                                                        pos), 56, graph=True)
+    shapes = bench_decode_attention.run_kv_int8(k5_shapes)
+    for r in shapes:
+        print(f"  time {r['shape']} bf16 q S=512: kernel {r['ms']:.5f} ms "
+              f"device (CUDA graph replay over {r['caches']} caches, "
+              f"{r['mb_read_a_cycle']:.0f} MB of K/V and scales a cycle); "
+              f"bound {r['bound_ms']:.5f} ms ({r['bound_by']}, "
+              f"{r['bound_ms'] / r['ms']:.1%} of it); K5 at the same "
+              f"positions {r['k5_ms']:.5f} ms; reference only, not a library "
+              f"call for this function: SDPA over the rows dequantized to "
+              f"bf16 {r['sdpa_dequantized_reference_ms']:.5f} ms [{card}]")
     t_p = time_ms(lambda: decode_attention_kv_int8_plain(q, kq, ks, vq, vs,
                                                          pos), 2, 3)
-    rows = int((pos + 1).sum())
-    # the JAX CostEstimate's bytes (kv_int8.py:120-123) over the rows
-    # 0..pos: int8 K and V plus their f32 scales; q read and the output
-    # written at their own size
-    b_ms, b_by = least_time(2 * rows * Hkv * (Dh + 4) + nbytes(q, pos)
-                            + q.numel() * 2,
-                            4.0 * rows * Hq * Dh + 2.0 * rows * Hkv * Dh)
-    mask = (torch.arange(S, device="cuda")[None, :]
-            <= pos[:, None])[:, None, None, :]
-    deq = [(dequantize_kv_rows(c[0], c[1]).bfloat16(),
-            dequantize_kv_rows(c[2], c[3]).bfloat16()) for c in caches]
-    sdpa = time_ms(lambda: F.scaled_dot_product_attention(
-        q[:, :, None], *deq[it()], attn_mask=mask, enable_gqa=True), 56,
-        graph=True)
-    del deq, caches
-    print(f"  time B=4 bf16 S={S}: kernel {t_k:.5f} ms device (CUDA graph "
-          f"replay, int8 K/V from HBM), plain {t_p:.3f} ms; bound "
-          f"{b_ms:.5f} ms ({b_by}: {rows} K/V rows); reference only, not a "
-          f"library call for this function: SDPA over the same rows "
-          f"dequantized to bf16 {sdpa} ms [{card}]")
+    print(f"  plain B=4 pos {POS[:B]}: {t_p:.3f} ms per eager call [{card}]")
+    b4, b8, b1 = shapes[:3]
     return {"name": "decode_attention_kv_int8", "route": "cuda",
-            "source": "qwen3_tts_tpu_torch/csrc/kv_int8.cu",
+            "source": "qwen3_tts_tpu_torch/csrc/decode_attention.cu",
             "replaces": "qwen3_tts_tpu/ops/pallas/kv_int8.py:115",
-            "max_abs_err": worst, "ms": t_k, "plain_ms": t_p,
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
-            "sdpa_bf16_reference_ms": sdpa,
-            "shape": f"B=4 Hq=16 Hkv=8 Dh=128 S={S} int8 KV, bf16 q"}
+            "max_abs_err": worst, "ms": b4["ms"], "plain_ms": t_p,
+            "bound_ms": b4["bound_ms"], "bound_by": b4["bound_by"],
+            "library_ms": None,
+            "sdpa_bf16_reference_ms": b4["sdpa_dequantized_reference_ms"],
+            "k5_ms": b4["k5_ms"], "ms_b8": b8["ms"],
+            "bound_ms_b8": b8["bound_ms"], "ms_b1": b1["ms"],
+            "bound_ms_b1": b1["bound_ms"],
+            "shape": f"{b4['shape']} Hq=16 Hkv=8 Dh=128 S=512 int8 KV, bf16 "
+                     f"q", "shapes": shapes}
 
 
 def _serve(b, card: str, label: str, counters: dict):
@@ -1193,14 +1190,12 @@ def main() -> int:
     print(f"engine (random int8 weights, full geometry) ready in "
           f"{time.perf_counter() - t0:.1f} s")
 
+    k5 = phase_decode_attention(card)
     kernels = [*phase_qmatmul(card), phase_talker_step(eng, card),
                *phase_talker_merged(eng, card), phase_cp_decode(eng, card),
-               phase_decode_attention(card), phase_paged_attention(card),
-               phase_kv_int8(card)]
+               k5, phase_paged_attention(card),
+               phase_kv_int8(card, k5["shapes"])]
     phase_prefill_tile(eng, card)
-    by_name = {k["name"]: k for k in kernels}
-    phase_kernel_profiles(eng, card, by_name["talker_step"],
-                          by_name["cp_decode"])
     counters = {"qmatmul": qmatmul, "qmatmul_qsplit": qmatmul_qsplit,
                 "qmatmul_tile": qmatmul_tile,
                 "talker_step": talker_decode_step_fused,
@@ -1210,6 +1205,11 @@ def main() -> int:
                 "decode_attention_kv_int8": decode_attention_kv_int8,
                 "talker_step_merged": talker_decode_step_merged,
                 "talker_step_mergedvec": talker_decode_step_mergedvec}
+    # the int8-KV probe's steps are timed before the first profiler session
+    kv8 = phase_bench_kv_int8(card, counters)
+    by_name = {k["name"]: k for k in kernels}
+    phase_kernel_profiles(eng, card, by_name["talker_step"],
+                          by_name["cp_decode"])
     launches = phase_slice(eng, card, counters)
     for k in ("qmatmul", "talker_step", "cp_decode"):
         check(launches[k] > 0, f"{k} never launched in the slice")
@@ -1220,7 +1220,7 @@ def main() -> int:
     launches.update(phase_batcher(params, card, counters))
     del params
     phase_synth_batch(card, counters)
-    launches.update(phase_bench_kv_int8(card, counters))
+    launches.update(kv8)
     launches.update(phase_microbench_merged(card, counters))
     for k in kernels:
         k["launches"] = launches[k["name"]]

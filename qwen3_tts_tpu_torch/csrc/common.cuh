@@ -105,6 +105,14 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
                : "memory");
 }
 
+// 4 bytes (one f32) through L1: the .cg form takes 16-byte copies only
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src)
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }

@@ -1,10 +1,12 @@
-// K5: one-token GQA decode attention over the dense KV cache, and K4: the
-// same over a block-paged KV pool through a per-row page table. One
-// kernel body; a compile-time mode says how a position's row is found.
+// K5: one-token GQA decode attention over the dense KV cache; K4: the
+// same over a block-paged KV pool through a per-row page table; K6: the
+// same over a per-row scaled int8 cache. One kernel body; compile-time
+// modes say how a position's row is found and how it is read.
 //
 // Replaces the TPU kernels qwen3_tts_tpu/ops/pallas/decode_attention.py ::
-// decode_attention_pallas (K5) and qwen3_tts_tpu/ops/pallas/
-// paged_attention.py :: paged_decode_attention_pallas (K4).
+// decode_attention_pallas (K5), qwen3_tts_tpu/ops/pallas/
+// paged_attention.py :: paged_decode_attention_pallas (K4) and
+// qwen3_tts_tpu/ops/pallas/kv_int8.py :: decode_attention_kv_int8 (K6).
 //
 // out[b, h*G + g, :] = softmax_s(q[b, h*G + g] . K[b, s, h] * scale, s <=
 // pos[b]) . V[b, :, h], with q, K and V read as f32 (from bf16 or f32),
@@ -15,13 +17,18 @@
 // Paged (K4): it is pool[table[b, s / psz], s % psz] of a (P, psz, Hkv, Dh)
 // pool, S = MAXP * psz; table entries past a row's allocation are 0, a
 // reserved page, and since no position past pos is read, never read.
+// int8 (K6): it is kq[b, h, s] of a head-major (B, Hkv, S, Dh) int8 cache
+// with f32 row scales ks[b, h, s], each element dequantized as float(kq) *
+// ks in f32, one correctly rounded product (the TPU kernel's dequantize),
+// before it is used; V likewise.
 //
 // Bound on an H100: a call reads each row's K and V for positions 0..pos
 // once (2 x (pos+1) x Hkv x Dh elements; at B = 4, S = 512, bf16 and pos
 // [0, 511, 200, 37], 3.1 MB, 0.93 us at 3.35 TB/s; at B = 8 and every pos
-// 511, 16.8 MB, 5.0 us) against ~4 flops per element: bound by HBM
-// bandwidth, so the design is about keeping bytes in flight and the
-// serial steps after them short.
+// 511, 16.8 MB, 5.0 us; int8, 2 x (pos+1) x Hkv x (Dh + 4) bytes with the
+// scales, 1.6 MB and 0.47 us, 8.7 MB and 2.6 us) against ~4 flops per
+// element: bound by HBM bandwidth, so the design is about keeping bytes in
+// flight and the serial steps after them short.
 //
 // Design. The positions of a (kv head, row) are split over a cluster of
 // DA_NSPLIT = 8 blocks (grid (8, Hkv, B): 256 blocks at B = 4 where one
@@ -36,11 +43,18 @@
 // anything, each warp issues cp.async copies, 16 bytes a lane, of its K
 // rows and V rows into its own ring of shared-memory buffers (longer
 // sub-chunks are walked in tiles, K tiles first), so the V read overlaps
-// the scores, and the warp then runs alone (__syncwarp only). Per query
-// head g of the group, over the warp's positions s <= pos:
+// the scores, and the warp then runs alone (__syncwarp only). int8, the
+// cache is head-major, so a warp's K rows and its V rows are each one
+// contiguous run of W * Dh bytes (2 KB at S = 512), 64 rows of 128 a
+// staging buffer; their W row scales each go 4 bytes a copy (s0 * 4 is
+// not 16-byte aligned for every S) into the warp's scale buffer, in the
+// first copy group. Per query head g of the group, over the warp's
+// positions s <= pos:
 //   score   lane chains of 8 contiguous elements (Dh / 8 lanes a row, one
-//           16-byte shared load in bf16), an xor butterfly over those
-//           lanes, then * scale;
+//           16-byte shared load in bf16, one 8-byte load of int8, each
+//           element then float(kq) * ks by __fmul_rn: nvcc's -fmad must
+//           not contract it into the chain's fma), an xor butterfly over
+//           those lanes, then * scale;
 //   m_w     max of the scores; e_s = expf(s - m_w);
 //   l_w     sum of e_s: lane j adds positions j, j + 32, ... in order,
 //           then a warp butterfly;
@@ -61,17 +75,22 @@
 // and warp). The plain version (ops/kernels/decode_attention.py) follows
 // every one of these orders, so the two agree bit for bit; K4's plain
 // version (ops/kernels/paged_attention.py) is K5's over the rows the table
-// gathers.
+// gathers, K6's (ops/kernels/kv_int8.py) K5's over the dequantized rows.
 //
 // What sets the time: at these sizes not the bytes but each block's chain
 // of dependent steps (the pos load, the copies, scores, softmax, P.V, the
 // merge, the barrier, the combine), so the talker's group size and head
 // dim (G 2, Dh 128) are template constants, which folds the index
 // arithmetic of the main path; every other (G <= 8, Dh) takes one generic
-// instantiation. S is read at run time. q rows are read 16 bytes a lane.
+// instantiation, in each of the dense, paged and int8 modes. S is read at
+// run time. q rows are read 16 bytes a lane. The int8 mode is added behind
+// `if constexpr` and constant-folded selects, so the bf16 and f32
+// instantiations compile as they did before it.
 // Times and bounds are in PERF.md
 // (qwen3_tts_tpu_torch/tools/bench_decode_attention).
 #include "common.cuh"
+
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -85,8 +104,8 @@ constexpr int DA_VEC = 8;        // elements of a lane's dot chain
 constexpr int DA_MAXDH = 256;    // Dh / DA_VEC lanes a row: a power of two <= 32
 constexpr int DA_NBUF = 2;       // staging buffers a warp
 // bytes of K or V rows a buffer: a warp's sub-chunk of up to 32 bf16 rows
-// of 128 (the paged batcher's 18 of 576 positions, K5's 16 of 512) is one
-// K stage and one V stage, all in flight at once
+// (64 int8 rows) of 128 (the paged batcher's 18 of 576 positions, K5's and
+// K6's 16 of 512) is one K stage and one V stage, all in flight at once
 constexpr int DA_TILE_BYTES = 8 * 1024;
 constexpr int DA_MAX_SMEM = 227 * 1024;
 
@@ -102,34 +121,53 @@ __device__ __forceinline__ void ld8(const float* p, float v[8]) {
   v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
 }
 
+// 8 contiguous staged int8 elements of a row whose scale is rs, each
+// dequantized as float(kq) * rs: one 8-byte shared load, two char4s, and
+// an explicit __fmul_rn, so the product is rounded before any fma uses it
+__device__ __forceinline__ void ld8(const int8_t* p, float rs, float v[8]) {
+  const int2 raw = *reinterpret_cast<const int2*>(p);
+  char4 a, b;
+  memcpy(&a, &raw.x, sizeof a);
+  memcpy(&b, &raw.y, sizeof b);
+  v[0] = __fmul_rn((float)a.x, rs); v[1] = __fmul_rn((float)a.y, rs);
+  v[2] = __fmul_rn((float)a.z, rs); v[3] = __fmul_rn((float)a.w, rs);
+  v[4] = __fmul_rn((float)b.x, rs); v[5] = __fmul_rn((float)b.y, rs);
+  v[6] = __fmul_rn((float)b.z, rs); v[7] = __fmul_rn((float)b.w, rs);
+}
+
 struct DaArgs {
   const void* q; int q_bf16;
   const void* k; const void* v;  // dense (B, S, Hkv, Dh); paged pools (P,
-                                 // psz, Hkv, Dh); f32 or bf16 (KV)
+                                 // psz, Hkv, Dh); f32 or bf16 (KV); int8
+                                 // (B, Hkv, S, Dh)
   const void* pos; int pos64;    // (B,) int32, or int64 if pos64
   const int* table; int MAXP, psz;  // paged: (B, MAXP) page ids, S = MAXP * psz
   void* out;                     // (B, Hq * Dh) in q's type
   int S, Hq, Hkv, Dh;
   int tile;                      // rows a staging buffer holds
   float scale;
+  const float* ks; const float* vs;  // int8: (B, Hkv, S) row scales
 };
 
 // shared-memory words (f32, or int for the pool rows) after the staging
 // rings: a warp's scores, every warp's (m, l) and P.V, the slices of every
-// block's (m, l) and P.V that this block combines, and (paged) each
-// warp's pool rows
-inline int da_smem_words(int G, int Dh, int W, bool paged) {
+// block's (m, l) and P.V that this block combines, and ``tail`` words a
+// warp: (paged) its pool rows, (int8) its K and V row scales
+inline int da_smem_words(int G, int Dh, int W, int tail) {
   const int per = (G * Dh + DA_NSPLIT - 1) / DA_NSPLIT;
   return DA_WARPS * (G * W + 2 * G + G * Dh) + DA_NSPLIT * (per + 2 * G) +
-         (paged ? DA_WARPS * W : 0);
+         DA_WARPS * tail;
 }
 
 // MAIN: the talker's G 2 and Dh 128 as constants; otherwise G <= 8 and
 // Dh come from the arguments, with registers for 8 heads. PAGED: rows
-// through the page table (K4), else the dense cache (K5).
+// through the page table (K4), else the dense cache (K5). KV int8_t (K6,
+// never PAGED): the head-major int8 cache with its row scales.
 template <typename KV, bool MAIN, bool PAGED>
 __global__ void __cluster_dims__(DA_NSPLIT, 1, 1) __launch_bounds__(DA_THREADS)
 decode_attn_split_kernel(DaArgs a) {
+  constexpr bool I8 = std::is_same<KV, int8_t>::value;
+  static_assert(!(I8 && PAGED), "no paged int8 cache");
   constexpr int GM = MAIN ? 2 : DA_MAXG;            // registers: q rows
   constexpr int NV = GM * DA_MAXDH / DA_VEC / 32;  // P.V units a lane
   constexpr int R = GM <= 2 ? 4 : (GM == 4 ? 2 : 1);  // score rows at once
@@ -171,7 +209,8 @@ decode_attn_split_kernel(DaArgs a) {
   const int nw = max(0, min(W, n - warp * W));  // the warp's
   // shared: ring[DA_WARPS][DA_NBUF][tile * Dh] | sc[DA_WARPS][G * W] |
   // wml[DA_WARPS][2 G] | wo[DA_WARPS][G * Dh] | ro[DA_NSPLIT][per] |
-  // rml[DA_NSPLIT][2 G] | (paged) prow[DA_WARPS][W]; rank c combines
+  // rml[DA_NSPLIT][2 G] | (paged) prow[DA_WARPS][W] | (int8)
+  // rsc[DA_WARPS][2 W], a warp's K then V row scales; rank c combines
   // outputs [c * per, c * per + per)
   const int per = (GD + DA_NSPLIT - 1) / DA_NSPLIT;
   KV* ring = reinterpret_cast<KV*>(smem) + warp * DA_NBUF * tile * Dh;
@@ -182,6 +221,8 @@ decode_attn_split_kernel(DaArgs a) {
   float* ro = wo + DA_WARPS * GD;
   float* rml = ro + DA_NSPLIT * per;
   int* prow = reinterpret_cast<int*>(rml + DA_NSPLIT * 2 * G) + warp * W;
+  float* ksc = I8 ? rml + DA_NSPLIT * 2 * G + warp * 2 * W : nullptr;
+  float* vsc = I8 ? ksc + W : nullptr;
   sc += warp * G * W;
 
   // paged: the pool row of each of the warp's positions below S (its
@@ -196,10 +237,11 @@ decode_attn_split_kernel(DaArgs a) {
     __syncwarp();
   }
 
-  const long KVD = (long)Hkv * Dh;
+  const long KVD = I8 ? (long)Dh : (long)Hkv * Dh;  // a row's stride
   // dense: row b's position s0 + r at base + r * KVD; paged: pool row
-  // prow[r] at prow[r] * KVD + h * Dh
+  // prow[r] at prow[r] * KVD + h * Dh; int8: [b, h, s0 + r] at base + r * Dh
   const long base = PAGED ? (long)h * Dh
+                    : I8  ? (((long)b * Hkv + h) * S + s0) * Dh
                           : ((long)b * S + s0) * KVD + (long)h * Dh;
   const int nt = (nw + tile - 1) / tile, nst = 2 * nt;  // K tiles, then V
   const int ppr = Dh * (int)sizeof(KV) / 16;  // 16-byte pieces a row: 2^k
@@ -217,6 +259,13 @@ decode_attn_split_kernel(DaArgs a) {
                  reinterpret_cast<const char*>(src + row) + 16 * j);
     }
   };
+  if constexpr (I8) {  // the warp's row scales, in the first group
+    const long sb = ((long)b * Hkv + h) * S + s0;
+    for (int j = lane; j < nw; j += 32) {
+      cp_async4(ksc + j, a.ks + sb + j);
+      cp_async4(vsc + j, a.vs + sb + j);
+    }
+  }
 #pragma unroll
   for (int st = 0; st < DA_NBUF; ++st) {  // one commit group a stage
     if (st < nst) issue(st);
@@ -241,9 +290,13 @@ decode_attn_split_kernel(DaArgs a) {
       for (int rb = 0; rb < rows; rb += R * ngrp) {
         float kv8[R][DA_VEC], d[R][GM];
 #pragma unroll
-        for (int u = 0; u < R; ++u)  // rows past the tile repeat its last
-          ld8(buf + min(rb + u * ngrp + grp, rows - 1) * Dh + gl * DA_VEC,
-              kv8[u]);
+        for (int u = 0; u < R; ++u) {  // rows past the tile repeat its last
+          const int rr = min(rb + u * ngrp + grp, rows - 1);
+          if constexpr (I8)
+            ld8(buf + rr * Dh + gl * DA_VEC, ksc[r0 + rr], kv8[u]);
+          else
+            ld8(buf + rr * Dh + gl * DA_VEC, kv8[u]);
+        }
 #pragma unroll
         for (int u = 0; u < R; ++u)
 #pragma unroll
@@ -303,7 +356,10 @@ decode_attn_split_kernel(DaArgs a) {
 #pragma unroll 4
           for (int r = 0; r < rows; ++r) {
             float v8[DA_VEC];
-            ld8(vr + r * Dh, v8);
+            if constexpr (I8)
+              ld8(vr + r * Dh, vsc[r0 + r], v8);
+            else
+              ld8(vr + r * Dh, v8);
             const float er = e[r];
 #pragma unroll
             for (int j = 0; j < DA_VEC; ++j) acc[i][j] = fmaf(er, v8[j], acc[i][j]);
@@ -391,32 +447,38 @@ cudaError_t launch_kv(const DaArgs& a, int B, size_t smem, cudaStream_t st) {
              : launch_decode_attn<KV, false, PAGED>(a, B, smem, st);
 }
 
-// checks, staging tile and shared memory of either mode, then the launch
-cudaError_t launch_attention(DaArgs a, int kv_bf16, int B, bool paged,
+// the K/V element types of launch_attention
+enum DaKv { DA_F32 = 0, DA_BF16 = 1, DA_I8 = 2 };
+
+// checks, staging tile and shared memory of every mode, then the launch
+cudaError_t launch_attention(DaArgs a, int kv, int B, bool paged,
                              cudaStream_t st) {
   const int S = a.S, Hq = a.Hq, Hkv = a.Hkv, Dh = a.Dh;
   const int lpr = Dh / DA_VEC;
+  const size_t es = kv == DA_I8 ? 1 : kv == DA_BF16 ? 2 : 4;
   // q rows are read and K/V rows copied in 16-byte pieces: q, k, v and
   // every row (Dh elements) must keep that alignment
   if (B < 1 || S < 1 || Hkv < 1 || Hq % Hkv || Hq / Hkv > DA_MAXG ||
       Dh < DA_VEC || Dh % DA_VEC || Dh > DA_MAXDH || (lpr & (lpr - 1)) ||
+      (Dh * es) % 16 || (kv == DA_I8 && (paged || !a.ks || !a.vs)) ||
       reinterpret_cast<uintptr_t>(a.q) % 16 ||
       reinterpret_cast<uintptr_t>(a.k) % 16 ||
       reinterpret_cast<uintptr_t>(a.v) % 16)
     return cudaErrorInvalidValue;
   const int G = Hq / Hkv, C = (S + DA_NSPLIT - 1) / DA_NSPLIT;
   const int W = (C + DA_WARPS - 1) / DA_WARPS;
-  const size_t es = kv_bf16 ? 2 : 4;
   const int fit = (int)(DA_TILE_BYTES / (Dh * es));  // rows a buffer holds
   a.tile = W < fit ? W : fit;
+  const int tail = paged ? W : kv == DA_I8 ? 2 * W : 0;
   const size_t smem = DA_WARPS * DA_NBUF * (size_t)a.tile * Dh * es +
-                      (size_t)da_smem_words(G, Dh, W, paged) * 4;
+                      (size_t)da_smem_words(G, Dh, W, tail) * 4;
   if (smem > (size_t)DA_MAX_SMEM) return cudaErrorInvalidValue;
   if (paged)
-    return kv_bf16 ? launch_kv<__nv_bfloat16, true>(a, B, smem, st)
-                   : launch_kv<float, true>(a, B, smem, st);
-  return kv_bf16 ? launch_kv<__nv_bfloat16, false>(a, B, smem, st)
-                 : launch_kv<float, false>(a, B, smem, st);
+    return kv == DA_BF16 ? launch_kv<__nv_bfloat16, true>(a, B, smem, st)
+                         : launch_kv<float, true>(a, B, smem, st);
+  if (kv == DA_I8) return launch_kv<int8_t, false>(a, B, smem, st);
+  return kv == DA_BF16 ? launch_kv<__nv_bfloat16, false>(a, B, smem, st)
+                       : launch_kv<float, false>(a, B, smem, st);
 }
 
 }  // namespace
@@ -428,8 +490,8 @@ extern "C" int q3_decode_attention(const void* q, int q_bf16, const void* k,
                                    int Hkv, int Dh, int scale_bits,
                                    void* stream) {
   const DaArgs a{q, q_bf16, k, v, pos, pos64, nullptr, 0, 0, out, S, Hq,
-                 Hkv, Dh, 0, host_float(scale_bits)};
-  return (int)launch_attention(a, kv_bf16, B, false,
+                 Hkv, Dh, 0, host_float(scale_bits), nullptr, nullptr};
+  return (int)launch_attention(a, kv_bf16 ? DA_BF16 : DA_F32, B, false,
                                reinterpret_cast<cudaStream_t>(stream));
 }
 
@@ -443,7 +505,22 @@ extern "C" int q3_paged_attention(const void* q, int q_bf16,
   if (MAXP < 1 || psz < 1 || (long long)MAXP * psz > (1LL << 30))
     return (int)cudaErrorInvalidValue;
   const DaArgs a{q, q_bf16, pool_k, pool_v, pos, pos64, table, MAXP, psz,
-                 out, MAXP * psz, Hq, Hkv, Dh, 0, host_float(scale_bits)};
-  return (int)launch_attention(a, kv_bf16, B, true,
+                 out, MAXP * psz, Hq, Hkv, Dh, 0, host_float(scale_bits),
+                 nullptr, nullptr};
+  return (int)launch_attention(a, kv_bf16 ? DA_BF16 : DA_F32, B, true,
+                               reinterpret_cast<cudaStream_t>(stream));
+}
+
+// K6: kq, vq the int8 cache (B, Hkv, S, Dh), ks, vs its f32 row scales
+// (B, Hkv, S)
+extern "C" int q3_decode_attention_kv_int8(
+    const void* q, int q_bf16, const void* kq, const void* ks, const void* vq,
+    const void* vs, const void* pos, int pos64, void* out, int B, int S,
+    int Hq, int Hkv, int Dh, int scale_bits, void* stream) {
+  const DaArgs a{q, q_bf16, kq, vq, pos, pos64, nullptr, 0, 0, out, S, Hq,
+                 Hkv, Dh, 0, host_float(scale_bits),
+                 reinterpret_cast<const float*>(ks),
+                 reinterpret_cast<const float*>(vs)};
+  return (int)launch_attention(a, DA_I8, B, false,
                                reinterpret_cast<cudaStream_t>(stream));
 }

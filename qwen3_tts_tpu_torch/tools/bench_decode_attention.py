@@ -1,11 +1,15 @@
 """Time K5 (dense decode attention, ops/kernels/decode_attention.py) on
 one NVIDIA GPU at the talker's geometry (Hq 16, Hkv 8, Dh 128, S 512,
 bf16), beside its byte bound and scaled_dot_product_attention on the same
-inputs; and K4 (paged decode attention, ops/kernels/paged_attention.py)
-at the paged batcher's page geometry (pages of 64, 9 a row, a pool of
-B * 9 + 1 pages with page 0 reserved, a scrambled table), B = 4 and 8,
-beside its byte bound and, for reference only (no single PyTorch call
-pages), SDPA over the rows the table gathers.
+inputs; K4 (paged decode attention, ops/kernels/paged_attention.py) at
+the paged batcher's page geometry (pages of 64, 9 a row, a pool of B * 9
++ 1 pages with page 0 reserved, a scrambled table), B = 4 and 8, beside
+its byte bound and, for reference only (no single PyTorch call pages),
+SDPA over the rows the table gathers; and K6 (int8-KV decode attention,
+ops/kernels/kv_int8.py) at K5's four shapes over a (B, Hkv, S, Dh) int8
+cache with f32 row scales, bf16 q, beside its byte bound, K5's time at
+the same positions and, for reference only (no single PyTorch call reads
+an int8 cache with row scales), SDPA over the rows dequantized to bf16.
 
 Each shape is timed as a decode step meets it, with K/V from HBM: the
 calls take in turn enough K/V caches (28, a layer each, or more) that the
@@ -21,8 +25,9 @@ output) at 3.35 TB/s and its ~4 flops per K/V element at the f32 peak of
 
 ``--root DIR`` imports qwen3_tts_tpu_torch from another checkout of the
 repository (its kernels are built there), so two versions of K5 can be
-timed in turns on one card (K4's entry point, paged_attention_cuda, has
-the same arguments in every version). Prints one JSON line per shape.
+timed in turns on one card (K4's and K6's entry points,
+paged_attention_cuda and decode_attention_kv_int8_cuda, have the same
+arguments in every version). Prints one JSON line per shape.
 """
 
 from __future__ import annotations
@@ -70,6 +75,17 @@ def bound_ms(B: int, rows: int, extra: int = 0) -> tuple:
                + B * HQ * DH * 2 + extra)       # the output
     t_b = n_bytes / HBM_BYTES_PER_S * 1e3
     t_o = 4.0 * rows * HQ * DH / F32_FLOPS * 1e3
+    return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
+
+
+def kv8_bound_ms(B: int, rows: int) -> tuple:
+    """K6's (ms, "bytes" or "operations"): q (bf16), pos, the int8 K and V
+    rows 0..pos with their f32 scales, the output; 4 flops per K/V
+    element and one product a dequantized element."""
+    n_bytes = (B * HQ * DH * 2 + B * 4 + 2 * rows * HKV * (DH + 4)
+               + B * HQ * DH * 2)
+    t_b = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_o = (4.0 * rows * HQ * DH + 2.0 * rows * HKV * DH) / F32_FLOPS * 1e3
     return (t_b, "bytes") if t_b >= t_o else (t_o, "operations")
 
 
@@ -166,6 +182,59 @@ def run_paged() -> list:
     return out
 
 
+def run_kv_int8(k5_rows: list = ()) -> list:
+    """Time K6 and, for reference, SDPA over the dequantized rows at each
+    of SHAPES; ``k5_rows`` (run()'s) puts K5's time at the same positions
+    beside each. Returns one dict per shape."""
+    import torch
+    import torch.nn.functional as F
+    from qwen3_tts_tpu_torch.ops.kernels.kv_int8 import (
+        decode_attention_kv_int8_cuda)
+    from qwen3_tts_tpu_torch.tools import time_ms
+    k5 = {r["shape"]: r["ms"] for r in k5_rows}
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    out = []
+    for label, B, pl in SHAPES:
+        rows = sum(p + 1 for p in pl)
+        n = max(LAYERS, math.ceil(3 * L2_BYTES / (2 * rows * HKV * (DH + 4))))
+        q = torch.randn((B, HQ, DH), generator=g, device="cuda").bfloat16()
+        kvq = torch.randint(-127, 128, (n, 2, B, HKV, S, DH), generator=g,
+                            device="cuda", dtype=torch.int8)
+        kvs = torch.rand((n, 2, B, HKV, S), generator=g, device="cuda") * 0.02
+        pos = torch.tensor(pl, device="cuda", dtype=torch.int32)
+        it = itertools.cycle(range(n)).__next__
+
+        def k6():
+            i = it()
+            return decode_attention_kv_int8_cuda(q, kvq[i, 0], kvs[i, 0],
+                                                 kvq[i, 1], kvs[i, 1], pos)
+        deq = [(kvq[i].float() * kvs[i][..., None]).bfloat16()
+               for i in range(4)]
+        mask = (torch.arange(S, device="cuda")[None, :]
+                <= pos[:, None])[:, None, None, :]
+
+        def sdpa(i=None):
+            i = it() % 4 if i is None else i
+            return F.scaled_dot_product_attention(
+                q[:, :, None], deq[i][0], deq[i][1], attn_mask=mask,
+                enable_gqa=True)
+        err = float((sdpa(0).reshape(B, -1).float() -
+                     decode_attention_kv_int8_cuda(
+                         q, kvq[0, 0], kvs[0, 0], kvq[0, 1], kvs[0, 1],
+                         pos).float()).abs().max())
+        t_k = time_ms(k6, n, graph=True)
+        t_l = time_ms(sdpa, n, graph=True)
+        b_ms, b_by = kv8_bound_ms(B, rows)
+        out.append({"shape": f"K6 {label}", "ms": t_k,
+                    "k5_ms": k5.get(label),
+                    "sdpa_dequantized_reference_ms": t_l, "bound_ms": b_ms,
+                    "bound_by": b_by, "caches": n,
+                    "mb_read_a_cycle": 2 * rows * HKV * (DH + 4) * n / 1e6,
+                    "sdpa_max_abs_err": err})
+        del kvq, kvs, deq
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[2]),
@@ -177,7 +246,8 @@ def main() -> int:
         print("bench_decode_attention: needs a CUDA device", file=sys.stderr)
         return 1
     import qwen3_tts_tpu_torch
-    for row in run() + run_paged():
+    k5 = run()
+    for row in k5 + run_paged() + run_kv_int8(k5):
         print(json.dumps({"root": qwen3_tts_tpu_torch.__path__[0], **row,
                           "device": torch.cuda.get_device_name(0)}))
     return 0

@@ -528,6 +528,95 @@ def test_kv_int8_kernel_matches_plain(cuda, dtype):
                                rtol=0, atol=0)
 
 
+# K6 cases (B, S, G, Hkv, Dh, pos): the talker's geometry (G 2, Dh 128,
+# the MAIN instantiation) at S 512, ragged chunks (S 577: chunks of 73,
+# sub-chunks of 19, scales at offsets off 16 bytes) and S 8192 (staged in
+# tiles of 64 rows; the old kernel refused S past ~3900); the generic
+# instantiation at G 1, 2 and 8 and Dh 64
+K6_CASES = {
+    "B3-S80-G2-Dh64": (3, 80, 2, 4, 64, [0, 79, 33]),
+    "B1-S512": (1, 512, 2, 8, 128, [511]),
+    "B8-S512": (8, 512, 2, 8, 128, [0, 511, 63, 64, 127, 128, 200, 37]),
+    "B3-S577": (3, 577, 2, 8, 128, [576, 72, 73]),
+    "B8-S577-G1-Dh64": (8, 577, 1, 4, 64, [0, 576, 72, 73, 18, 19, 300, 1]),
+    "B3-S512-G8": (3, 512, 8, 2, 128, [511, 0, 64]),
+    "B8-S80-G1": (8, 80, 1, 8, 128, [0, 79, 9, 10, 2, 3, 40, 19]),
+    "B1-S8192": (1, 8192, 2, 8, 128, [8191]),
+    "B3-S8192-G8-Dh64": (3, 8192, 8, 1, 64, [8191, 3000, 1024]),
+}
+
+
+def _k6_inputs(cuda, dtype, case, seed=12):
+    from qwen3_tts_tpu_torch.ops.kernels import kv_int8 as tkv
+    B, S, G, Hkv, Dh, pos = K6_CASES[case]
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn((B, G * Hkv, Dh), generator=g, device=cuda).to(dtype)
+    kq, ks = tkv.quantize_kv_rows(
+        torch.randn((B, Hkv, S, Dh), generator=g, device=cuda))
+    vq, vs = tkv.quantize_kv_rows(
+        torch.randn((B, Hkv, S, Dh), generator=g, device=cuda))
+    return q, kq, ks, vq, vs, torch.tensor(pos, device=cuda)
+
+
+@pytest.mark.parametrize("pos_dtype", [torch.int32, torch.int64])
+@pytest.mark.parametrize("case", list(K6_CASES))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_int8_split_kernel_matches_plain(cuda, dtype, case, pos_dtype):
+    """K6 (the int8 mode of K5's split) at error 0 against its plain
+    version, K5's plain version over the dequantized rows; equal bits on
+    a second launch."""
+    from qwen3_tts_tpu_torch.ops.kernels import kv_int8 as tkv
+    *args, pos = _k6_inputs(cuda, dtype, case)
+    args.append(pos.to(pos_dtype))
+    got = tkv.decode_attention_kv_int8_cuda(*args)
+    assert got.dtype == dtype
+    torch.testing.assert_close(got, tkv.decode_attention_kv_int8_plain(*args),
+                               rtol=0, atol=0)
+    assert torch.equal(tkv.decode_attention_kv_int8_cuda(*args), got)
+
+
+def test_kv_int8_kernel_graph_replay(cuda):
+    """A CUDA graph of one K6 call replays to the eager output, and reads
+    pos at replay: new positions copied into its buffer give the eager
+    output at those positions."""
+    from qwen3_tts_tpu_torch.ops.kernels import kv_int8 as tkv
+    q, kq, ks, vq, vs, pos = _k6_inputs(cuda, torch.bfloat16, "B8-S512")
+    want = tkv.decode_attention_kv_int8_cuda(q, kq, ks, vq, vs, pos)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = tkv.decode_attention_kv_int8_cuda(q, kq, ks, vq, vs, pos)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    pos.copy_(torch.tensor([5, 300, 511, 0, 64, 63, 1, 400], device=cuda))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(out, tkv.decode_attention_kv_int8_cuda(q, kq, ks, vq,
+                                                              vs, pos))
+
+
+@pytest.mark.parametrize("case,main", [("B8-S512", True),
+                                       ("B3-S80-G2-Dh64", False),
+                                       ("B3-S512-G8", False)])
+def test_kv_int8_kernel_instantiation(cuda, case, main):
+    """The talker's geometry (G 2, Dh 128) launches the MAIN instantiation
+    of the int8 mode, other geometries the generic one: the kernel names
+    that torch.profiler records for the call."""
+    from qwen3_tts_tpu_torch.ops.kernels import kv_int8 as tkv
+    args = _k6_inputs(cuda, torch.bfloat16, case)
+    tkv.decode_attention_kv_int8_cuda(*args)
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        tkv.decode_attention_kv_int8_cuda(*args)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages()
+             if "decode_attn_split_kernel" in e.key]
+    want = f"decode_attn_split_kernel<signed char, {str(main).lower()}, false>"
+    assert len(names) == 1 and want in names[0], names
+
+
 @pytest.mark.parametrize("vec_merged", [False, True])
 def test_talker_merged_kernel_matches_plain_and_k3(cuda, vec_merged):
     """K7 (merged weight streams, qsplit reading column blocks with a row
