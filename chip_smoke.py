@@ -35,23 +35,44 @@
    that probe are timed, K3's and K2's launches and per-kernel breakdown
    under torch.profiler (a profiler session slows later chains of
    dependent launches in the process by a few percent).
-3. Slice: TTSEngine(TTSConfig(), quantize="int8") synthesizes three short
+3. Streaming, timed before any profile: the same int8 engine renders the
+   three texts in turns non-streaming and streaming with on_chunk (the
+   incremental vocoder stream), then one long request of each past the
+   head chunks (at most 192 tokens, which runs the last decode call and
+   the stream steps up to the EOS-pacing bound); each streamed request
+   must give the non-streaming codes, its pieces its audio, and int16
+   audio within +-1 LSB of the non-streaming audio (the share that
+   differs is printed), and launch K1 (both routes), K2 and K3. Printed:
+   first_audio_seconds per text and mode and their medians, the RTF of
+   each mode, the count of pieces. Then the continuous batcher, dense
+   (K5) then paged (K4), serves six requests of at most 48 tokens, two
+   of them streaming: each streaming request's segments make up its
+   audio, within +-1 LSB of the batcher's own non-streaming vocoding of
+   its codes; the first-segment latency is printed. Then
+   synthesize_exact over 300 seeded codes (left-context chunks of 64, 25
+   tokens of context): synthesize_chunked_context with 300 tokens of
+   context (sample-exact by construction) within +-1 LSB of the
+   one-window decode, synthesize_exact's 25-token context within f32
+   1e-4 of it (the JAX package's bound for that truncation); the same
+   weights and codes through the port on the CPU agree with the card
+   within +-1 LSB and give the same truncation gap within 10%.
+4. Slice: TTSEngine(TTSConfig(), quantize="int8") synthesizes three short
    texts; each request must give codes in range, n_tokens * 1920 finite
    samples, and launch K1 (on both routes), K2 and K3; K1 at most 23
    launches a decode step plus 4 a talker layer a request (the prefill),
    and the tile exactly 4 a talker layer a request.
-4. Profile: one more request under torch.profiler, after the checked
+5. Profile: one more request under torch.profiler, after the checked
    ones: device time by kernel, device busy time, launches per token.
-5. Batcher: ContinuousBatcher (bf16 talker, int8 code predictor, 4 slots)
+6. Batcher: ContinuousBatcher (bf16 talker, int8 code predictor, 4 slots)
    serves 6 requests, dense with attention_impl="pallas" (K5), then paged
    (K4); each run twice, which must give equal codes (the paged rerun
    with its free pages handed out in reverse order), then one scheduler
    step of each under torch.profiler.
-6. synthesize_batch: 3 texts in one batched decode (bf16, K5).
-7. The port of tools/dev/microbench_talker_merged.py: run_steps with the
+7. synthesize_batch: 3 texts in one batched decode (bf16, K5).
+8. The port of tools/dev/microbench_talker_merged.py: run_steps with the
    talker step swapped for K3, K7 merged and K7 mergedvec; equal codes,
    each variant launching its own kernel and no other.
-8. One JSON line of per-kernel results, then the card line, then
+9. One JSON line of per-kernel results, then the card line, then
    {"ok": true, "device": {...}} as the last line.
 
 Every path is driven with the launch counters set to 0 just before it and
@@ -67,6 +88,7 @@ from __future__ import annotations
 import itertools
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -76,6 +98,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 TEXTS = ("Привет, мир!", "Hello from the port.", "Добрый день.")
 BATCH_TEXTS = ("Привет, мир!", "Hello from the port.", "Добрый день.",
                "How are you today?", "Спасибо.", "A short one.")
+# a streaming request past the head chunks (8 + 56 tokens): with 75 text
+# tokens the EOS boost starts at 0.8 * 3 * 75 = 180 tokens
+LONG_TEXT = ("Hello from the port: this longer request streams well "
+             "past its head chunks.")
+LONG_TOKENS = 192
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
 F32_FLOPS = 67e12               # f32 outside the tensor cores, published
 
@@ -550,6 +577,253 @@ def phase_slice(eng, card: str, counters: dict) -> dict:
           f"({K1_PER_STEP} a step and 4 a talker layer a request)")
     check(k1 <= cap, f"K1 launched {k1} times in the slice (cap {cap})")
     return {k: fn.launches for k, fn in counters.items()}
+
+
+def int16_delta(got, want) -> tuple:
+    """(max |got - want|, share of samples that differ) of two int16
+    arrays of one length."""
+    import numpy as np
+    check(got.shape == want.shape, f"audio lengths {got.shape} {want.shape}")
+    d = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    return (int(d.max()) if d.size else 0,
+            float((d > 0).mean()) if d.size else 0.0)
+
+
+def phase_stream_engine(eng, card: str, counters: dict) -> None:
+    """The int8 engine's streaming path at full geometry: each text in
+    turns non-streaming and streaming with on_chunk (one short request of
+    each first, as a warm-up), then one long request of each past the
+    head chunks (LONG_TEXT, at most LONG_TOKENS tokens): its last decode
+    call and the stream steps up to the EOS-pacing bound, trimmed to the
+    token count, run at full geometry."""
+    import numpy as np
+    import torch
+    modes = ("plain", "streaming")
+
+    def run(mode, text, seed, **kw):
+        pieces = []
+        if mode == "streaming":
+            kw.update(streaming=True, on_chunk=pieces.append)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.synthesize(text, seed=seed, **kw)
+        torch.cuda.synchronize()
+        return res, pieces, time.perf_counter() - t0
+
+    def request(i, text, label, **kw):
+        """Both modes in turns; the streamed request is held to the
+        non-streaming one. Returns {mode: (result, launches)}."""
+        out, want = {}, None
+        for mode in modes:
+            before = {k: fn.launches for k, fn in counters.items()}
+            res, pieces, wall = run(mode, text, i, **kw)
+            grew = {k: fn.launches - before[k] for k, fn in counters.items()}
+            out[mode] = (res, grew)
+            line = (f"stream {mode} {label}: n_tokens={res.n_tokens} "
+                    f"first_audio_seconds={res.first_audio_seconds:.4f} "
+                    f"wall={wall:.3f}s RTF={res.rtf:.4f}")
+            check(res.n_tokens >= 1, f"stream {mode} {label}: no tokens")
+            check(res.first_audio_seconds is not None,
+                  f"stream {mode} {label}: no first_audio_seconds")
+            for k in ("qmatmul_qsplit", "qmatmul_tile", "talker_step",
+                      "cp_decode"):
+                check(grew[k] > 0, f"stream {mode} {label}: {k} was not "
+                      "launched")
+            if mode == "plain":
+                want = res
+            else:
+                check(np.array_equal(res.codes, want.codes),
+                      f"stream {label}: codes differ from the "
+                      "non-streaming request's")
+                check(np.array_equal(np.concatenate(pieces),
+                                     res.audio_int16),
+                      f"stream {label}: pieces are not the audio")
+                dmax, share = int16_delta(res.audio_int16, want.audio_int16)
+                line += (f" pieces={len(pieces)} int16 max|diff|={dmax} "
+                         f"differing share={share:.6f}")
+                check(dmax <= 1, f"stream {label}: int16 off by {dmax} > "
+                      "1 LSB")
+            print(f"{line} [{card}]")
+        return out
+
+    for mode in modes:
+        run(mode, TEXTS[0], 9, max_tokens=16)
+    for fn in counters.values():
+        fn.launches = 0
+    rows = {m: [] for m in modes}
+    per_mode = {m: dict.fromkeys(counters, 0) for m in modes}
+    for i, text in enumerate(TEXTS):
+        for mode, (res, grew) in request(i, text, f"request {i}").items():
+            rows[mode].append(res)
+            for k, v in grew.items():
+                per_mode[mode][k] += v
+    rtf = {m: statistics.median(r.rtf for r in rows[m]) for m in modes}
+    for m in modes:
+        fa = [r.first_audio_seconds for r in rows[m]]
+        print(f"stream {m}: first_audio_seconds "
+              f"{[round(x, 4) for x in fa]} median "
+              f"{statistics.median(fa):.4f} s; median RTF {rtf[m]:.4f} "
+              f"({rtf[m] / rtf['plain']:.3f}x the non-streaming RTF); "
+              f"launches { {k: v for k, v in per_mode[m].items() if v} } "
+              f"[{card}]")
+    print(json.dumps({"metric": "stream_first_audio_seconds_p50", **{
+        m: statistics.median(r.first_audio_seconds for r in rows[m])
+        for m in modes}, "card": card}))
+    print(json.dumps({"metric": "stream_rtf_p50", **rtf, "card": card}))
+    long = request(len(TEXTS), LONG_TEXT, "long request",
+                   max_tokens=LONG_TOKENS)
+    n = long["streaming"][0].n_tokens
+    check(n > sum(eng.head_schedule),
+          f"stream long request: {n} tokens end inside the head")
+
+
+def phase_stream_batcher(params, card: str, counters: dict) -> None:
+    """The continuous batcher with streaming requests at full geometry:
+    dense (attention_impl="pallas", K5), then paged (K4); six requests of
+    at most 48 tokens through 4 slots, requests 1 and 4 streaming."""
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch.config import TalkerConfig, TTSConfig
+    from qwen3_tts_tpu_torch.engine.engine import vocode
+    from qwen3_tts_tpu_torch.serve.batching import ContinuousBatcher
+    from qwen3_tts_tpu_torch.tools import bench_e2e
+    cfg = TTSConfig(talker=TalkerConfig(attention_impl="pallas"))
+    streaming = (1, 4)
+    for paged in (False, True):
+        label = "paged" if paged else "dense"
+        kw = dict(paged=True, page_size=64) if paged else {}
+        b = ContinuousBatcher(cfg, params, batch_size=4, decode_chunk=16,
+                              device="cuda", **kw)
+        pieces = {i: [] for i in streaming}
+        first = {}
+
+        def sink(i):
+            def on_chunk(seg):
+                first.setdefault(i, time.perf_counter())
+                pieces[i].append(seg)
+            return on_chunk
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        futs = [b.submit(*bench_e2e.encode_text(t), seed=i, max_tokens=48,
+                         on_chunk=sink(i) if i in streaming else None)
+                for i, t in enumerate(BATCH_TEXTS)]
+        steps = 0
+        while not all(f.done() for f in futs):
+            check(steps < 200, f"stream {label} batcher: not done after "
+                  "200 steps")
+            b.step()
+            steps += 1
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: fn.launches for k, fn in counters.items()}
+        for k in ("paged_attention" if paged else "decode_attention",
+                  "cp_decode", "qmatmul"):
+            check(launches[k] > 0, f"stream {label} batcher: {k} was not "
+                  "launched")
+        for i, f in enumerate(futs):
+            codes, audio = f.result(timeout=0)
+            check(len(codes) >= 1 and len(audio) == len(codes) * 1920,
+                  f"stream {label} batcher: request {i} duration math")
+            if i not in streaming:
+                continue
+            r = f.request
+            check(np.array_equal(np.concatenate(pieces[i]), audio),
+                  f"stream {label} batcher: request {i}'s segments are not "
+                  "its audio")
+            want = vocode(b._vp, codes, cfg.vocoder, "cuda")
+            dmax, share = int16_delta(audio, want)
+            print(f"stream {label} batcher request {i}: n_tokens="
+                  f"{len(codes)} segments={len(pieces[i])} first segment "
+                  f"{first[i] - r.t_submit:.4f} s after submit ("
+                  f"{first[i] - r.t_admit:.4f} s after admission), done "
+                  f"{r.t_done - r.t_submit:.4f} s; int16 max|diff| {dmax} "
+                  f"against its non-streaming vocoding, differing share "
+                  f"{share:.6f} [{card}]")
+            check(dmax <= 1, f"stream {label} batcher: request {i} off by "
+                  f"{dmax} > 1 LSB")
+        check(all(r is None for r in b._slot_req),
+              f"stream {label} batcher: a slot is busy")
+        print(f"stream {label} batcher: {len(futs)} requests "
+              f"({len(streaming)} streaming), {steps} scheduler steps, "
+              f"wall {wall:.3f} s, "
+              f"launches {launches} [{card}]")
+        del b
+
+
+def phase_chunked_vocoder(eng, card: str) -> None:
+    """synthesize_exact past one window: 300 seeded codes in left-context
+    chunks of 64 with 25 tokens of context. synthesize_chunked_context
+    with all 300 tokens as context is sample-exact by construction:
+    int16 within +-1 LSB of the one-window decode of all 300 (f32, TF32
+    off). The 25-token context truncates the pre-transformer's receptive
+    field (its window is 72 tokens): held to the JAX package's bound for
+    it, f32 atol 1e-4 (tests/test_vocoder_golden.py,
+    test_chunked_context_near_exact_bounded). A witness on the host: the
+    same weights and codes through the port on the CPU, where
+    synthesize_exact and the one window each agree with the card's
+    within +-1 LSB, and the truncation's gap is the card's within 10%."""
+    import copy
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch.models import vocoder as voc
+    codes = np.random.default_rng(11).integers(
+        0, 2048, (300, 16)).astype(np.int32)
+    vp, vcfg = eng._vp, eng.cfg.vocoder
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = voc.synthesize_exact(voc.int16_decoder(vp, vcfg), codes,
+                               device="cuda")
+    wall = time.perf_counter() - t0
+    check(len(got) == 300 * 1920, "chunked vocoder: duration math broken")
+    W = voc.voc_bucket(301)
+
+    def decoder(params):
+        return lambda ch: voc.decode(params, ch, vcfg)
+
+    def one_window(params, device):
+        out = decoder(params)(voc.pad_window(codes, W, device))
+        return out[0, :300 * 1920].cpu().numpy()
+    dec = decoder(vp)
+    full = one_window(vp, "cuda")
+    exact = voc.synthesize_chunked_context(dec, codes, 64, 300,
+                                           device="cuda")
+    approx = voc.synthesize_exact(dec, codes, device="cuda")
+    check(np.array_equal(voc.to_int16(approx), got),
+          "chunked vocoder: the int16 decoder's audio is not the f32 one's")
+    e_max, e_share = int16_delta(voc.to_int16(exact), voc.to_int16(full))
+    a_err = float(np.abs(approx - full).max())
+    a_max, a_share = int16_delta(got, voc.to_int16(full))
+    print(f"chunked vocoder: synthesize_exact over 300 codes {wall:.3f} s "
+          f"wall; context 300 against one window: f32 max|diff| "
+          f"{float(np.abs(exact - full).max()):.3e}, int16 max|diff| "
+          f"{e_max} on {e_share:.6f}; context 25 (synthesize_exact): f32 "
+          f"max|diff| {a_err:.3e}, int16 max|diff| {a_max} on "
+          f"{a_share:.6f} [{card}]")
+    check(e_max <= 1, f"chunked vocoder: context 300 off by {e_max} > 1 "
+          "LSB")
+    check(a_err <= 1e-4, f"chunked vocoder: context 25 off by {a_err} > "
+          "1e-4")
+    t0 = time.perf_counter()
+    vp_cpu = copy.deepcopy(eng.vocoder).to("cpu").weights()
+    full_cpu = one_window(vp_cpu, "cpu")
+    approx_cpu = voc.synthesize_exact(decoder(vp_cpu), codes, device="cpu")
+    gap_cpu = float(np.abs(approx_cpu - full_cpu).max())
+    f_max, _ = int16_delta(voc.to_int16(full), voc.to_int16(full_cpu))
+    x_max, x_share = int16_delta(voc.to_int16(approx),
+                                 voc.to_int16(approx_cpu))
+    print(f"chunked vocoder on the CPU ({time.perf_counter() - t0:.1f} s, "
+          f"{torch.get_num_threads()} threads): context 25 against one "
+          f"window f32 max|diff| {gap_cpu:.3e} (the card's "
+          f"{a_err:.3e}); card against CPU: one window f32 max|diff| "
+          f"{float(np.abs(full - full_cpu).max()):.3e}, synthesize_exact "
+          f"{float(np.abs(approx - approx_cpu).max()):.3e}, int16 max|diff| "
+          f"{x_max} on {x_share:.6f} [{card}]")
+    check(f_max <= 1 and x_max <= 1, "chunked vocoder: the card and the "
+          f"CPU differ by {max(f_max, x_max)} > 1 LSB")
+    check(abs(a_err - gap_cpu) <= 0.1 * gap_cpu, "chunked vocoder: the "
+          f"card's truncation gap {a_err} is not the CPU's {gap_cpu}")
 
 
 def phase_profile(eng, card: str) -> None:
@@ -1205,8 +1479,14 @@ def main() -> int:
                 "decode_attention_kv_int8": decode_attention_kv_int8,
                 "talker_step_merged": talker_decode_step_merged,
                 "talker_step_mergedvec": talker_decode_step_mergedvec}
-    # the int8-KV probe's steps are timed before the first profiler session
+    # the int8-KV probe's steps and the streaming phases are timed before
+    # the first profiler session
     kv8 = phase_bench_kv_int8(card, counters)
+    params = init_random_params(TTSConfig(), seed=0,
+                                dtype=torch.bfloat16, device="cuda")
+    phase_stream_engine(eng, card, counters)
+    phase_stream_batcher(params, card, counters)
+    phase_chunked_vocoder(eng, card)
     by_name = {k["name"]: k for k in kernels}
     phase_kernel_profiles(eng, card, by_name["talker_step"],
                           by_name["cp_decode"])
@@ -1215,8 +1495,6 @@ def main() -> int:
         check(launches[k] > 0, f"{k} never launched in the slice")
     phase_profile(eng, card)
     del eng
-    params = init_random_params(TTSConfig(), seed=0,
-                                dtype=torch.bfloat16, device="cuda")
     launches.update(phase_batcher(params, card, counters))
     del params
     phase_synth_batch(card, counters)

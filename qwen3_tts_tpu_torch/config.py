@@ -84,6 +84,17 @@ class VocoderConfig:
             out *= r
         return out
 
+    @property
+    def output_crop(self) -> int:
+        """Samples the causal transposed convs crop from the tail of a
+        full decode: out_len(T) = T * total_upsample - output_crop. Each
+        decoder block's ConvTranspose(k=2r, s=r) loses r frames at its
+        own resolution."""
+        loss = 0
+        for r in self.upsample_rates:
+            loss = loss * r + r
+        return loss
+
 
 @dataclasses.dataclass(frozen=True)
 class SamplingConfig:
@@ -122,6 +133,7 @@ NEWLINE_TOKEN_ID = 198
 
 SAMPLE_RATE = 24000
 SAMPLES_PER_TOKEN = 1920
+VOC_CHUNK_SIZE = 64    # tokens a chunk of synthesize_exact past one window
 
 # accepted for API compatibility; the language does not change the prefix
 SUPPORTED_LANGUAGES = (

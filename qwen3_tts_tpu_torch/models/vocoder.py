@@ -22,7 +22,11 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from qwen3_tts_tpu_torch.config import VocoderConfig
+from qwen3_tts_tpu_torch.config import (
+    SAMPLES_PER_TOKEN,
+    VOC_CHUNK_SIZE,
+    VocoderConfig,
+)
 from qwen3_tts_tpu_torch.models import transformer as tfm
 from qwen3_tts_tpu_torch.models.module import WeightTree
 
@@ -194,6 +198,71 @@ def pad_codes(codes: torch.Tensor, W: int) -> torch.Tensor:
     if W <= T:
         return codes[..., :W, :]
     return F.pad(codes, (0, 0, 0, W - T))
+
+
+def int16_decoder(params: dict, cfg: VocoderConfig):
+    """The decode_fn of synthesize_exact: (1, W, 16)
+    int32 codes on the device -> (1, W * 1920) int16 on the device."""
+    return lambda codes: to_int16_device(decode(params, codes, cfg))
+
+
+def pad_window(codes: np.ndarray, W: int, device) -> torch.Tensor:
+    """Host codes (m, 16) sliced or zero-padded to a (1, W, 16) int32
+    window on ``device`` (pad_codes)."""
+    t = torch.from_numpy(np.ascontiguousarray(codes[:, :16], np.int32))
+    return pad_codes(t, W)[None].to(device)
+
+
+def synthesize_exact(decode_fn, codes: np.ndarray, max_single: int = 256,
+                     device="cuda") -> np.ndarray:
+    """The decode of every non-streaming path: up to ``max_single`` tokens
+    in ONE window of voc_bucket(n + 1) tokens (full attention context;
+    the bucket is larger than n, so the last token has a zero-code
+    lookahead token), longer utterances through left-context chunking.
+
+    ``decode_fn`` takes (1, W, 16) int32 on ``device`` and returns (1,
+    W * 1920) samples there (f32, or int16 from int16_decoder). The n == 0
+    early exit returns an empty f32 array whatever decode_fn returns."""
+    n = len(codes)
+    if n == 0:
+        return np.zeros((0,), np.float32)
+    if n <= max_single:
+        out = decode_fn(pad_window(codes, voc_bucket(n + 1), device))
+        return out[0, :n * SAMPLES_PER_TOKEN].cpu().numpy()
+    return synthesize_chunked_context(decode_fn, codes, VOC_CHUNK_SIZE,
+                                      device=device)
+
+
+def synthesize_chunked_context(decode_fn, codes: np.ndarray,
+                               chunk_tokens: int = VOC_CHUNK_SIZE,
+                               context_tokens: int = 25,
+                               device="cuda") -> np.ndarray:
+    """Left-context + one-token-lookahead chunking. Each chunk re-decodes
+    ``context_tokens`` of left context (discarded) and one token of
+    lookahead in a window of voc_bucket(context + chunk + 1) tokens. The
+    lookahead makes the conv stack exact against a full decode; the left
+    context truncates the sliding-window attention's receptive field (a
+    ~1e-5 approximation at the default 25 < window 72). With
+    ``context_tokens`` >= the sequence length the output is sample-exact.
+    Every chunk is launched before any is fetched."""
+    n_tokens = len(codes)
+    spt = SAMPLES_PER_TOKEN
+    W = voc_bucket(context_tokens + chunk_tokens + 1)
+    jobs = []
+    for cs in range(0, n_tokens, chunk_tokens):
+        ce = min(cs + chunk_tokens, n_tokens)
+        ctx = min(context_tokens, cs)
+        la_end = min(ce + 1, n_tokens)           # one token of lookahead
+        out = decode_fn(pad_window(codes[cs - ctx:la_end], W, device))
+        jobs.append(out[0, ctx * spt:(ctx + ce - cs) * spt])
+    parts = [j.cpu().numpy() for j in jobs]
+    return np.concatenate(parts) if parts else np.zeros(0, np.float32)
+
+
+def to_int16_device(audio: torch.Tensor) -> torch.Tensor:
+    """to_int16 where the audio lies: clip, scale and cast on the device,
+    so a fetch moves int16, not f32."""
+    return torch.clamp(audio * 32767.0, -32768.0, 32767.0).to(torch.int16)
 
 
 def to_int16(audio: np.ndarray) -> np.ndarray:

@@ -78,6 +78,13 @@ def matmul_group(x: torch.Tensor, ws) -> list:
     return [o.reshape(*lead, o.shape[-1]) for o in outs]
 
 
+def is_quantized(component: dict) -> bool:
+    """True if the component's layer stack holds QTensor weights (an
+    already quantized tree, e.g. from quantize_talker)."""
+    return any(isinstance(v, QTensor)
+               for v in component.get("layers", {}).values())
+
+
 def quantize_layer_stack(layers: dict, fuse: bool = False) -> dict:
     """Quantize the seven projection matrices of a stacked layer dict;
     norms stay dense. ``fuse=True`` stores the concatenated q|k|v and

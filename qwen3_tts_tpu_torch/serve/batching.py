@@ -20,10 +20,16 @@ Twin of qwen3_tts_tpu/serve/batching.py at pipeline_depth=1.
   (``quantize_cp``), so at batch <= 8 the 14 CP steps run on K2; with
   ``TalkerConfig(attention_impl="pallas")`` a dense step's attention runs
   on K5.
+- A finished slot is vocoded through vocoder.synthesize_exact (one window
+  up to 256 tokens, left-context chunks past that). A streaming request
+  (``submit(on_chunk=...)``) instead advances its own incremental
+  vocoder stream (models/vocoder_stream) over its new final tokens at
+  every harvest, the steps launched before the codes are copied to the
+  host; its segments concatenate to its audio within the stream
+  contract (int16 +-1 LSB).
 
-Not ported yet, and refused with the ROADMAP item named: streaming
-(``on_chunk``), voice cloning (``ref_codes``), ``pipeline_depth=2`` and a
-device ``mesh``.
+Not ported yet, and refused with the ROADMAP item named: voice cloning
+(``ref_codes``), ``pipeline_depth=2`` and a device ``mesh``.
 """
 
 from __future__ import annotations
@@ -43,10 +49,11 @@ import torch
 
 from qwen3_tts_tpu_torch.config import TTSConfig
 from qwen3_tts_tpu_torch.engine import generate as gen
-from qwen3_tts_tpu_torch.engine.engine import check_one_window, vocode
+from qwen3_tts_tpu_torch.engine.engine import vocode
 from qwen3_tts_tpu_torch.models import talker as tk
 from qwen3_tts_tpu_torch.models import transformer as tfm
 from qwen3_tts_tpu_torch.models import vocoder as voc
+from qwen3_tts_tpu_torch.models import vocoder_stream as vstream
 from qwen3_tts_tpu_torch.models.code_predictor import CodePredictor
 from qwen3_tts_tpu_torch.ops import quant
 from qwen3_tts_tpu_torch.ops import sampling as smp
@@ -62,11 +69,21 @@ class OverloadedError(RuntimeError):
 class _Request:
     def __init__(self, text_ids: np.ndarray, n_text: int, seed: int,
                  max_tokens: Optional[int] = None, priority: int = 0,
-                 order: int = 0):
+                 order: int = 0, on_chunk=None):
         self.text_ids = text_ids
         self.n_text = int(n_text)
         self.seed = seed
         self.max_tokens = max_tokens
+        # streaming: called on the scheduler thread with each new int16
+        # segment; it must queue the segment and return
+        self.on_chunk = on_chunk
+        # the incremental vocoder stream (its state, frames fed, samples
+        # emitted) and the segments taken from it
+        self.stream = vstream.Stream()
+        self.audio_parts: List[np.ndarray] = []
+        # a failed segment leaves a hole: no later segment is emitted and
+        # the Future raises this
+        self.stream_error: Optional[BaseException] = None
         # admission order among waiting requests: highest priority first,
         # FIFO (submit order) within a priority
         self.priority = priority
@@ -189,6 +206,7 @@ class ContinuousBatcher:
                                   cpp).to(self.device).weights()
         self._vp = voc.Vocoder(cfg.vocoder,
                                params["vocoder"]).to(self.device).weights()
+        self._stepper = vstream.StreamStepper(cfg.vocoder)
 
         self.paged = paged
         paged_kv = None
@@ -238,11 +256,17 @@ class ContinuousBatcher:
         """Queue a request; the Future resolves to (codes (T, 16) int32,
         audio int16 (T * 1920,)). ``max_tokens`` caps this request; a
         higher ``priority`` admits first (FIFO within a priority). Raises
-        OverloadedError when ``max_queue`` waiting requests are queued."""
-        if on_chunk is not None:
-            raise NotImplementedError(
-                "streaming (on_chunk) " + _ROADMAP.format(
-                    "streaming on_chunk with vocoder_stream"))
+        OverloadedError when ``max_queue`` waiting requests are queued.
+
+        ``on_chunk``: streaming. Called FROM THE SCHEDULER THREAD (it must
+        queue and return, never block) with each new int16 segment once
+        its tokens are final: the first after ``stream_head_tokens``, then
+        at least ``stream_emit_tokens`` new tokens a segment, the last
+        when the request finishes. The segments come from the incremental
+        vocoder stream and concatenate to the Future's audio, which equals
+        the non-streaming audio within +-1 LSB. If a segment fails (its
+        step or its fetch, or on_chunk raising), no later segment is
+        emitted and the Future raises that error."""
         if ref_codes is not None or n_target is not None:
             raise NotImplementedError(
                 "voice cloning (ref_codes) " + _ROADMAP.format(
@@ -257,7 +281,8 @@ class ContinuousBatcher:
                         f"(max_queue={self.max_queue}); retry later")
             self._order += 1
             req = _Request(np.asarray(text_ids, np.int32), n_text, seed,
-                           max_tokens, int(priority), self._order)
+                           max_tokens, int(priority), self._order,
+                           on_chunk)
             req.future.request = req   # exposes the timings
             if self._closed:
                 req.future.set_exception(RuntimeError("batcher stopped"))
@@ -553,29 +578,88 @@ class ContinuousBatcher:
             kv.table[s, i] = p.to(torch.int32)
             kv.capacity[s] += psz
 
+    # minimum new tokens a streaming emission while the slot is live (the
+    # last emission always flushes); the first emission waits only for
+    # the head
+    stream_emit_tokens = 48
+    stream_head_tokens = 8
+
+    def _dispatch_stream_windows(self, state: gen.GenState,
+                                 done: np.ndarray,
+                                 n_codes: np.ndarray) -> list:
+        """Launch each streaming slot's stream steps over its new final
+        tokens (StreamStepper.advance): a live slot once min-emit tokens
+        are new, its sub-quantum rest waiting for more; a finished slot
+        through its end and the zero-code frame that flushes the stream's
+        lag. The steps read the device codes row. Returns (request,
+        segment, n_codes) jobs, not yet fetched."""
+        jobs = []
+        for slot in range(self.batch_size):
+            req = self._slot_req[slot]
+            if (req is None or req.on_chunk is None
+                    or req.stream_error is not None):
+                continue
+            n = int(n_codes[slot])
+            if not done[slot]:
+                min_emit = (self.stream_head_tokens if req.stream.frames == 0
+                            else self.stream_emit_tokens)
+                if n - req.stream.frames < min_emit:
+                    continue
+            try:
+                segs = self._stepper.advance(self._vp, state.codes[slot],
+                                             req.stream, n, bool(done[slot]))
+            except Exception as e:
+                req.stream_error = e
+                continue
+            jobs += [(req, seg, n) for seg in segs]
+        return jobs
+
     def _harvest(self, state: gen.GenState) -> int:
         """Read the chunk's status (one device read, kept as the next
-        step's mirrors) and resolve the finished slots."""
+        step's mirrors), emit the streaming segments and resolve the
+        finished slots. Stream steps are launched before the codes are
+        copied to the host."""
         done, n_codes, pos = self._fetch_status(state)
         self._status_mirror = (done.copy(), pos.copy())
         now = time.perf_counter()
+        streaming = False
         for s, r in enumerate(self._slot_req):
             if r is not None and r.t_first is None and n_codes[s] > 0:
                 r.t_first = now
+            if r is not None and r.on_chunk is not None and n_codes[s] > 0:
+                streaming = True
         finished = [s for s in range(self.batch_size)
                     if self._slot_req[s] is not None and done[s]]
-        if not finished:
+        if not finished and not streaming:
             return 0
+        jobs = self._dispatch_stream_windows(state, done, n_codes)
         # a copy: on the CPU .numpy() would share the buffer that the
         # slot's next request overwrites
-        codes_all = state.codes.cpu().numpy().copy()
+        codes_all = (state.codes.cpu().numpy().copy() if finished
+                     else None)
+        for req, seg, n in jobs:
+            if req.stream_error is not None:
+                continue
+            try:
+                part = seg.take(n)
+                if len(part):
+                    req.audio_parts.append(part)
+                    req.on_chunk(part)
+            except Exception as e:
+                req.stream_error = e
         for slot in finished:
             req = self._slot_req[slot]
             codes = codes_all[slot, :int(n_codes[slot])]
             try:
-                check_one_window(len(codes))
-                audio = voc.to_int16(vocode(self._vp, codes,
-                                            self.cfg.vocoder, self.device))
+                if req.on_chunk is None:
+                    audio = vocode(self._vp, codes, self.cfg.vocoder,
+                                   self.device)
+                elif req.stream_error is not None:
+                    raise req.stream_error
+                else:
+                    audio = (np.concatenate(req.audio_parts)
+                             if req.audio_parts
+                             else np.zeros((0,), np.int16))
                 req.t_done = time.perf_counter()
                 req.future.set_result((codes, audio))
             except Exception as e:

@@ -266,18 +266,23 @@ def test_prefix_that_cannot_fit_fails_instead_of_wedging(params):
 
 def test_backpressure_and_refusals(params):
     """max_queue raises OverloadedError; what is not ported yet raises
-    NotImplementedError naming its ROADMAP item."""
+    NotImplementedError naming its ROADMAP item. Streaming (on_chunk),
+    once refused here, is ported: the request is served and its segments
+    make up its audio."""
     b = tbatching.ContinuousBatcher(TINY, params, batch_size=1,
                                     dtype=torch.float32, device="cpu",
                                     max_queue=1)
     ids, n = _ids("x")
-    b.submit(ids, n)
+    f = b.submit(ids, n)
     with pytest.raises(tbatching.OverloadedError):
         b.submit(ids, n)
-    for kw in (dict(on_chunk=print), dict(ref_codes=np.zeros((4, 16)),
-                                          n_target=1)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            b.submit(ids, n, **kw)
+    _drain(b, [f])
+    pieces = []
+    (codes, audio), = _drain(b, [b.submit(ids, n, on_chunk=pieces.append)])
+    assert len(codes) > 0 and len(audio) == len(codes) * 1920
+    np.testing.assert_array_equal(np.concatenate(pieces), audio)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        b.submit(ids, n, ref_codes=np.zeros((4, 16)), n_target=1)
     for kw in (dict(pipeline_depth=2), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbatching.ContinuousBatcher(TINY, params, device="cpu", **kw)

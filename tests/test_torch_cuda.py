@@ -641,3 +641,27 @@ def test_talker_merged_kernel_matches_plain_and_k3(cuda, vec_merged):
     h_3, r_3 = tts.talker_step_cuda(layers, x, pos, kv, cos, sin, 1e-6)
     for a, b in ((h_k, h_p), (r_k, r_p), (h_k, h_3), (r_k, r_3)):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+def test_streaming_engine_on_the_card(cuda):
+    """Streaming synthesis at tiny geometry on the card (bf16 talker; the
+    vocoder in f32, TF32 off), up to 80 tokens: the codes equal
+    the non-streaming codes, the on_chunk pieces make up the audio, and
+    the int16 audio is within +-1 LSB of the non-streaming audio (the
+    stream adds up its attention in another order, and cuDNN may pick
+    another convolution algorithm for another length)."""
+    from qwen3_tts_tpu_torch import config as pconfig
+    from qwen3_tts_tpu_torch.engine.engine import TTSEngine
+    eng = TTSEngine(pconfig.tiny_tts_config(max_tokens=80), device=cuda)
+    text = "Hello from the port, twice over."
+    want = eng.synthesize(text, seed=1)
+    pieces = []
+    res = eng.synthesize(text, seed=1, streaming=True,
+                         on_chunk=pieces.append)
+    np.testing.assert_array_equal(res.codes, want.codes)
+    np.testing.assert_array_equal(np.concatenate(pieces), res.audio_int16)
+    assert res.audio_int16.shape == want.audio_int16.shape
+    delta = np.abs(res.audio_int16.astype(np.int32)
+                   - want.audio_int16.astype(np.int32))
+    assert delta.max() <= 1, delta.max()
+    assert res.first_audio_seconds is not None

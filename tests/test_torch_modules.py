@@ -87,6 +87,7 @@ def test_port_imports_without_jax():
             "import qwen3_tts_tpu_torch.engine.engine\n"
             "import qwen3_tts_tpu_torch.cli\n"
             "import qwen3_tts_tpu_torch.serve.batching\n"
+            "import qwen3_tts_tpu_torch.models.vocoder_stream\n"
             "assert 'jax' not in sys.modules\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'qwen3_tts_tpu'))\n"
@@ -119,8 +120,9 @@ def test_chip_smoke_refuses_without_cuda(tmp_path):
 
 def test_port_config_matches_jax():
     """The port's copy of the config: every field it keeps has the JAX
-    package's default, in the full and the tiny geometry, and the
-    constants are equal."""
+    package's default, in the full and the tiny geometry, the derived
+    vocoder sizes (total_upsample, output_crop) agree, and the constants
+    (VOC_CHUNK_SIZE among them) are equal."""
     for jcfg, pcfg in ((C.TTSConfig(), pconfig.TTSConfig()),
                        (C.tiny_tts_config(8), pconfig.tiny_tts_config(8))):
         assert pcfg.max_tokens == jcfg.max_tokens
@@ -130,6 +132,7 @@ def test_port_config_matches_jax():
                 assert getattr(pp, f.name) == getattr(jp, f.name), \
                     (part, f.name)
         assert pcfg.vocoder.total_upsample == jcfg.vocoder.total_upsample
+        assert pcfg.vocoder.output_crop == jcfg.vocoder.output_crop
     for name in dir(pconfig):
         if name.isupper():
             assert getattr(pconfig, name) == getattr(C, name), name
