@@ -56,6 +56,26 @@
    1e-4 of it (the JAX package's bound for that truncation); the same
    weights and codes through the port on the CPU agree with the card
    within +-1 LSB and give the same truncation gap within 10%.
+   Then the engine's request surface (phase_engine_surface, also before
+   any profile; every request of the earlier phases is cold, the prefix
+   cache emptied before it): TTSEngine(quantize="int8-cp") on the three
+   texts (K1 and K2 launched, K3 never; an engine given the code
+   predictor already int8 reports "int8-cp" and gives equal codes); the
+   int8 engine's prefix cache (A, B, A with equal codes and audio, a hit
+   under another seed equal to that seed's cold request, a hit under
+   max_tokens=5 stopping there, a streaming hit with the whole request's
+   codes, no prefill tile on a hit; decode and prefill stage ms cold and
+   hit printed), its kv_cache_dir file (one written, restored with equal
+   codes and audio); voice cloning from a prompt dir of 40 seeded frames
+   (whole and streamed: equal codes, +-1 LSB; the cloned prefill on the
+   tile 4 launches a talker layer at R = 137 rows, the second request a
+   hit; the engine's cloned prefix equal bit for bit to the dense
+   batcher's admission prefix; one cloned request among three plain ones
+   through the dense (K5) and the paged (K4) batcher, each twice with
+   equal codes); synthesize_long on a six-sentence paragraph (5 pieces,
+   a group of 4 through synthesize_batch on K3; the result its pieces in
+   order; with on_chunk equal codes, its chunks its audio, within +-1
+   LSB; first-audio seconds and RTF printed).
 4. Slice: TTSEngine(TTSConfig(), quantize="int8") synthesizes three short
    texts; each request must give codes in range, n_tokens * 1920 finite
    samples, and launch K1 (on both routes), K2 and K3; K1 at most 23
@@ -72,7 +92,9 @@
 8. The port of tools/dev/microbench_talker_merged.py: run_steps with the
    talker step swapped for K3, K7 merged and K7 mergedvec; equal codes,
    each variant launching its own kernel and no other.
-9. One JSON line of per-kernel results, then the card line, then
+9. The command line: --long --quantize int8 --profile DIR writes a WAV
+   and a torch.profiler trace.
+10. One JSON line of per-kernel results, then the card line, then
    {"ok": true, "device": {...}} as the last line.
 
 Every path is driven with the launch counters set to 0 just before it and
@@ -103,6 +125,12 @@ BATCH_TEXTS = ("Привет, мир!", "Hello from the port.", "Добрый д
 LONG_TEXT = ("Hello from the port: this longer request streams well "
              "past its head chunks.")
 LONG_TOKENS = 192
+# a paragraph for synthesize_long: Russian and English, six sentences
+PARAGRAPH = ("Привет! Как дела? Hello there, this is the port. It reads a "
+             "whole paragraph. Сегодня хорошая погода. Good bye for now.")
+# the voice-cloning prompt of phase_engine_surface: seeded codec frames
+# and a short transcript, the format tools/encode_reference_audio.py writes
+CLONE_FRAMES, CLONE_TEXT = 40, "Reference words."
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
 F32_FLOPS = 67e12               # f32 outside the tensor cores, published
 
@@ -252,7 +280,8 @@ def phase_prefill_tile(eng, card: str) -> None:
     cfg = eng.cfg.talker
     with torch.inference_mode():
         ids, n_text = eng._encode_text(TEXTS[0])
-        prefix, plen = tk.build_prefix(eng._tp, ids, n_text)
+        prefix, plen = tk.build_prefix(
+            eng._tp, torch.from_numpy(ids).to("cuda"), n_text)
         P = prefix.shape[0]
         positions = torch.arange(P, device="cuda")[None]
         mask = tfm.causal_mask(1, P, plen.reshape(1))
@@ -482,6 +511,391 @@ def phase_cp_decode(eng, card: str) -> dict:
             "shape": "B=1, 14 steps, 5 layers"}
 
 
+def _launches(counters: dict) -> dict:
+    return {k: fn.launches for k, fn in counters.items()}
+
+
+def _grew(before: dict, counters: dict) -> dict:
+    return {k: fn.launches - before[k] for k, fn in counters.items()}
+
+
+def _check_result(res, label: str) -> None:
+    import numpy as np
+    n = res.n_tokens
+    check(n >= 1, f"{label}: no tokens")
+    check(res.codes.shape == (n, 16), f"{label}: codes shape "
+          f"{res.codes.shape}")
+    check(bool(((res.codes >= 0) & (res.codes < 2048)).all()),
+          f"{label}: codes out of [0, 2048)")
+    check(len(res.audio_int16) == n * 1920, f"{label}: duration math")
+    check(bool(np.isfinite(res.audio_int16.astype(np.float64)).all()),
+          f"{label}: non-finite audio")
+
+
+def _surface_int8_cp(params, card: str, counters: dict) -> None:
+    """TTSEngine(quantize="int8-cp") on TEXTS: K1 and K2 each request, K3
+    never; an engine given the same weights with the code predictor
+    already int8 reports "int8-cp" and gives equal codes."""
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch.config import TTSConfig
+    from qwen3_tts_tpu_torch.engine.engine import TTSEngine
+    from qwen3_tts_tpu_torch.ops import quant
+    cfg = TTSConfig()
+    a = TTSEngine(cfg, params=params, quantize="int8-cp", device="cuda")
+    b = TTSEngine(cfg, params=dict(params, code_predictor=(
+        quant.quantize_code_predictor(params["code_predictor"]))),
+                  device="cuda")
+    check(a.quantize == b.quantize == "int8-cp",
+          f"int8-cp labels {a.quantize!r} {b.quantize!r}")
+    for i, text in enumerate(TEXTS):
+        before = _launches(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = a.synthesize(text, seed=i, max_tokens=48)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        grew = _grew(before, counters)
+        _check_result(res, f"int8-cp request {i}")
+        for k in ("qmatmul", "cp_decode"):
+            check(grew[k] > 0, f"int8-cp request {i}: {k} not launched")
+        check(grew["talker_step"] == 0,
+              f"int8-cp request {i}: K3 launched {grew['talker_step']}")
+        same = b.synthesize(text, seed=i, max_tokens=48)
+        check(np.array_equal(same.codes, res.codes),
+              f"int8-cp request {i}: the pre-quantized code predictor "
+              "gave other codes")
+        print(f"int8-cp request {i}: n_tokens={res.n_tokens} wall "
+              f"{wall:.3f} s ({1000 * wall / res.n_tokens:.2f} ms/token) "
+              f"launches { {k: v for k, v in grew.items() if v} }; the "
+              f"pre-quantized code predictor: equal codes [{card}]")
+
+
+def _surface_prefix_cache(eng, card: str, counters: dict) -> None:
+    """The int8 engine's prefix LRU: A, B, A (equal codes and audio: the
+    snapshot is not changed by the decodes between), a hit under another
+    seed equals that seed's cold request, a hit under a smaller cap stops
+    there, a streaming hit gives the whole request's codes; a hit launches
+    no prefill tile."""
+    import numpy as np
+    import torch
+    L = eng.cfg.talker.num_layers
+
+    def run(text, seed, **kw):
+        before = _launches(counters)
+        res = eng.synthesize(text, seed=seed, **kw)
+        torch.cuda.synchronize()
+        return res, _grew(before, counters)["qmatmul_tile"]
+
+    eng._prefix_cache.clear()
+    a1, t_cold = run(TEXTS[0], 0)
+    run(TEXTS[1], 1)
+    a2, t_hit = run(TEXTS[0], 0)
+    check(t_cold == 4 * L and t_hit == 0,
+          f"prefix cache: tile launches cold {t_cold}, hit {t_hit}")
+    check(np.array_equal(a1.codes, a2.codes)
+          and np.array_equal(a1.audio_int16, a2.audio_int16),
+          "prefix cache: A, B, A gave other codes or audio")
+    hit5, _ = run(TEXTS[0], 5)
+    eng._prefix_cache.clear()
+    cold5, _ = run(TEXTS[0], 5)
+    check(np.array_equal(hit5.codes, cold5.codes)
+          and np.array_equal(hit5.audio_int16, cold5.audio_int16),
+          "prefix cache: a hit under seed 5 is not the cold seed-5 request")
+    capped, _ = run(TEXTS[0], 0, max_tokens=5)
+    check(1 <= capped.n_tokens <= 5 and np.array_equal(
+        capped.codes, a1.codes[:capped.n_tokens]),
+        f"prefix cache: a hit under max_tokens=5 gave {capped.n_tokens} "
+        "tokens or other codes")
+    pieces = []
+    streamed, t_stream = run(TEXTS[0], 0, streaming=True,
+                             on_chunk=pieces.append)
+    check(t_stream == 0 and np.array_equal(streamed.codes, a1.codes),
+          "prefix cache: the streaming hit prefilled or gave other codes")
+    check(np.array_equal(np.concatenate(pieces), streamed.audio_int16),
+          "prefix cache: the streaming hit's pieces are not its audio")
+    eng._prefix_cache.clear()
+    pieces = []
+    s_cold, _ = run(TEXTS[0], 0, streaming=True, on_chunk=pieces.append)
+    ms = {k: round(1000 * v, 3) for k, v in (
+        ("decode cold", a1.timings["decode"]),
+        ("decode hit", a2.timings["decode"]),
+        ("prefill cold (streaming)", s_cold.timings["prefill"]),
+        ("prefill hit (streaming)", streamed.timings["prefill"]))}
+    print(f"prefix cache: A, B, A equal; a seed-5 hit equals the cold "
+          f"seed-5 request; a hit under max_tokens=5 kept "
+          f"{capped.n_tokens} tokens; the tile {t_cold} launches cold, 0 "
+          f"on a hit; stage ms {ms} (n_tokens {a1.n_tokens}); first audio "
+          f"streamed cold {s_cold.first_audio_seconds:.4f} s, hit "
+          f"{streamed.first_audio_seconds:.4f} s [{card}]")
+
+
+def _surface_disk(eng, card: str, counters: dict) -> None:
+    """kv_cache_dir: a cold request writes one qwen3_kv_*.npz; with the
+    LRU emptied, the same request restores it (no prefill tile) with
+    equal codes and audio."""
+    import tempfile
+    import numpy as np
+    import torch
+    with tempfile.TemporaryDirectory() as d:
+        eng.kv_cache_dir = d
+        try:
+            eng._prefix_cache.clear()
+            t0 = time.perf_counter()
+            a = eng.synthesize(TEXTS[2], seed=2)
+            torch.cuda.synchronize()
+            t_write = time.perf_counter() - t0
+            files = [f for f in os.listdir(d) if f.startswith("qwen3_kv_")]
+            check(len(files) == 1, f"disk cache: {len(files)} files")
+            size = os.path.getsize(os.path.join(d, files[0]))
+            eng._prefix_cache.clear()
+            before = _launches(counters)
+            t0 = time.perf_counter()
+            b = eng.synthesize(TEXTS[2], seed=2)
+            torch.cuda.synchronize()
+            t_read = time.perf_counter() - t0
+            tiles = _grew(before, counters)["qmatmul_tile"]
+        finally:
+            eng.kv_cache_dir = None
+    check(tiles == 0, f"disk cache: the restore launched the tile {tiles} "
+          "times")
+    check(np.array_equal(a.codes, b.codes)
+          and np.array_equal(a.audio_int16, b.audio_int16),
+          "disk cache: the restored request gave other codes or audio")
+    print(f"disk cache: one file of {size} bytes; cold request with the "
+          f"write {t_write:.3f} s, restored request {t_read:.3f} s "
+          f"(n_tokens {a.n_tokens}), equal codes and audio [{card}]")
+
+
+def _serve_cloned(b, cloned, plain, label, counters):
+    """One cloned request among plain ones through batcher b; returns
+    (codes per request, the cloned request, launches)."""
+    import torch
+    for fn in counters.values():
+        fn.launches = 0
+    futs = [b.submit(*p, seed=i, max_tokens=32)
+            for i, p in enumerate(plain[:2])]
+    fc = b.submit(*cloned[:2], seed=7, max_tokens=32, ref_codes=cloned[2],
+                  n_target=cloned[3])
+    futs += [fc] + [b.submit(*p, seed=3 + i, max_tokens=32)
+                    for i, p in enumerate(plain[2:])]
+    steps = 0
+    while not all(f.done() for f in futs):
+        check(steps < 200, f"{label}: not done after 200 steps")
+        b.step()
+        steps += 1
+    torch.cuda.synchronize()
+    codes = []
+    for i, f in enumerate(futs):
+        c, a = f.result(timeout=0)
+        check(len(c) >= 1 and len(a) == len(c) * 1920,
+              f"{label}: request {i} duration math")
+        codes.append(c)
+    return codes, fc.request, _launches(counters)
+
+
+def _surface_cloning(eng, params, card: str, counters: dict) -> None:
+    """synthesize(prompt_dir=...) whole and streaming (equal codes, audio
+    within +-1 LSB; the cloned prefill on the tile 4 launches a talker
+    layer, the second request a hit); the engine's cloned prefix against
+    the dense batcher's admission prefix, bit for bit; one cloned request
+    among plain ones through the dense (K5) and the paged (K4) batcher,
+    each run twice with equal codes."""
+    import tempfile
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch.config import TalkerConfig, TTSConfig
+    from qwen3_tts_tpu_torch.models import talker as tk
+    from qwen3_tts_tpu_torch.serve.batching import ContinuousBatcher
+    from qwen3_tts_tpu_torch.tools import bench_e2e
+    L = eng.cfg.talker.num_layers
+    frames = np.random.default_rng(7).integers(
+        0, 2048, (CLONE_FRAMES, 16)).astype(np.int64)
+    with tempfile.TemporaryDirectory() as d:
+        np.save(os.path.join(d, "ref_codec_tokens.npy"), frames)
+        with open(os.path.join(d, "ref_text.txt"), "w") as f:
+            f.write(CLONE_TEXT)
+        eng._prefix_cache.clear()
+        before = _launches(counters)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        whole = eng.synthesize(TEXTS[0], seed=0, prompt_dir=d)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tiles = _grew(before, counters)["qmatmul_tile"]
+        pieces = []
+        before = _launches(counters)
+        streamed = eng.synthesize(TEXTS[0], seed=0, prompt_dir=d,
+                                  streaming=True, on_chunk=pieces.append)
+        torch.cuda.synchronize()
+        tiles_hit = _grew(before, counters)["qmatmul_tile"]
+        ref_codes, ref_text = eng._load_prompt(d)
+    _check_result(whole, "cloned request")
+    ids, n_text, n_target = eng._encode_cloned(TEXTS[0], ref_text)
+    padded, _ = tk.bucket_ref_frames(
+        tk.cloned_ref_limit(eng.cfg.talker.max_seq_len, len(ids)), ref_codes)
+    R = len(ids) + tk.PREFIX_EXTRA + len(padded)
+    check(tiles == 4 * L, f"cloned prefill: the tile launched {tiles} times")
+    check(tiles_hit == 0, "cloned request: the second one was no hit")
+    check(np.array_equal(streamed.codes, whole.codes),
+          "cloned request: streaming gave other codes")
+    check(np.array_equal(np.concatenate(pieces), streamed.audio_int16),
+          "cloned request: the pieces are not the audio")
+    dmax, share = int16_delta(streamed.audio_int16, whole.audio_int16)
+    check(dmax <= 1, f"cloned stream off by {dmax} > 1 LSB")
+    print(f"cloned request: prefix R={R} rows (text bucket {len(ids)}, "
+          f"{CLONE_FRAMES} reference frames), the tile {tiles} launches, "
+          f"n_tokens {whole.n_tokens}, wall {wall:.3f} s; streamed on a "
+          f"hit (tile 0): equal codes, int16 max|diff| {dmax}, differing "
+          f"share {share:.6f} [{card}]")
+
+    cfg = TTSConfig(talker=TalkerConfig(attention_impl="pallas"))
+    plain = [bench_e2e.encode_text(t) for t in TEXTS]
+    cloned = (ids, n_text, ref_codes, n_target)
+    for paged in (False, True):
+        label = "paged batcher (cloned)" if paged else \
+            "dense batcher (cloned)"
+        kw = dict(paged=True, page_size=64) if paged else {}
+        b = ContinuousBatcher(cfg, params, batch_size=4, decode_chunk=16,
+                              device="cuda", **kw)
+        codes, req, launches = _serve_cloned(b, cloned, plain, label,
+                                             counters)
+        if not paged:
+            # the engine's cached state was built on the frames the
+            # batcher bucketed, and both sides' weights and ids give one
+            # prefix
+            padded, n_ref = req.cloned_prep
+            check((tuple(ids.tolist()), n_text, n_target, padded.tobytes(),
+                   n_ref) in eng._prefix_cache,
+                  "the engine bucketed the reference otherwise")
+            got, got_len = tk.request_prefix(
+                b._tp, b._cpp["codec_embs"], req.text_ids, req.n_text,
+                req.cloned_prep)
+            want, want_len = tk.request_prefix(
+                eng._tp, eng._cpp["codec_embs"], ids, n_text,
+                req.cloned_prep)
+            check(torch.equal(got, want) and int(got_len) == int(want_len),
+                  "the batcher's cloned prefix is not the engine's")
+            print(f"cloned prefix: the engine's and the dense batcher's "
+                  f"admission prefix equal bit for bit ({tuple(got.shape)}, "
+                  f"prefix_len {int(got_len)}) [{card}]")
+        else:
+            b._free.reverse()     # hand out other pages the second time
+        codes2, _, _ = _serve_cloned(b, cloned, plain, label, counters)
+        check(all(np.array_equal(x, y) for x, y in zip(codes, codes2)),
+              f"{label}: a rerun gave other codes")
+        att = "paged_attention" if paged else "decode_attention"
+        for k in (att, "cp_decode", "qmatmul"):
+            check(launches[k] > 0, f"{label}: {k} not launched")
+        print(f"{label}: 1 cloned request (n_tokens {len(codes[2])}) among "
+              f"{len(plain)} plain ones, twice with equal codes; launches "
+              f"{ {k: v for k, v in launches.items() if v} } [{card}]")
+        del b
+
+
+def _surface_long(eng, card: str, counters: dict) -> None:
+    """synthesize_long on PARAGRAPH: at least 3 pieces and a group of at
+    least 2 through synthesize_batch (K3 at B >= 2); the result is its
+    pieces in order; again with on_chunk: equal codes, the chunks make up
+    its audio, within +-1 LSB of the run without a consumer."""
+    import numpy as np
+    import torch
+    parts, groups = [], []
+    real_synth, real_batch = eng.synthesize, eng.synthesize_batch
+
+    def synth(*a, **k):
+        r = real_synth(*a, **k)
+        parts.append(r)
+        return r
+
+    def batch(texts, *a, **k):
+        before = counters["talker_step"].launches
+        rs = real_batch(texts, *a, **k)
+        groups.append((len(texts), counters["talker_step"].launches - before))
+        parts.extend(rs)
+        return rs
+    runs = {}
+    for mode in ("plain", "on_chunk"):
+        chunks = []
+        eng._prefix_cache.clear()
+        eng.synthesize, eng.synthesize_batch = synth, batch
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eng.synthesize_long(
+                PARAGRAPH, seed=0,
+                on_chunk=chunks.append if mode == "on_chunk" else None)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            del eng.synthesize, eng.synthesize_batch
+        _check_result(res, f"synthesize_long ({mode})")
+        check(np.array_equal(res.codes,
+                             np.concatenate([p.codes for p in parts])),
+              f"synthesize_long ({mode}): codes are not its pieces'")
+        if mode == "plain":
+            check(np.array_equal(res.audio_int16, np.concatenate(
+                [p.audio_int16 for p in parts])),
+                "synthesize_long: audio is not its pieces'")
+        else:
+            check(np.array_equal(np.concatenate(chunks), res.audio_int16),
+                  "synthesize_long: the chunks are not its audio")
+        check(len(parts) >= 3, f"synthesize_long: {len(parts)} pieces")
+        check(any(n >= 2 and k3 > 0 for n, k3 in groups),
+              f"synthesize_long: no batched group on K3 ({groups})")
+        runs[mode] = res
+        print(f"synthesize_long ({mode}): {len(parts)} pieces, groups "
+              f"(size, K3 launches) {groups}, n_tokens {res.n_tokens}, "
+              f"{res.audio_seconds:.2f} s of audio, wall {wall:.3f} s, RTF "
+              f"{res.rtf:.4f}, first_audio_seconds "
+              f"{res.first_audio_seconds:.4f} [{card}]")
+        parts.clear()
+        groups.clear()
+    check(np.array_equal(runs["plain"].codes, runs["on_chunk"].codes),
+          "synthesize_long: on_chunk changed the codes")
+    dmax, share = int16_delta(runs["on_chunk"].audio_int16,
+                              runs["plain"].audio_int16)
+    check(dmax <= 1, f"synthesize_long: on_chunk audio off by {dmax}")
+    print(f"synthesize_long: with on_chunk equal codes, int16 max|diff| "
+          f"{dmax}, differing share {share:.6f} [{card}]")
+
+
+def phase_engine_surface(eng, params, card: str, counters: dict) -> None:
+    """The engine's request surface at full geometry, before any profiler
+    session: int8-cp, the prefix cache in memory and on disk, voice
+    cloning (engine, dense and paged batcher) and synthesize_long."""
+    t0 = time.perf_counter()
+    for part in (lambda: _surface_int8_cp(params, card, counters),
+                 lambda: _surface_prefix_cache(eng, card, counters),
+                 lambda: _surface_disk(eng, card, counters),
+                 lambda: _surface_cloning(eng, params, card, counters),
+                 lambda: _surface_long(eng, card, counters)):
+        part()
+    print(f"engine surface: {time.perf_counter() - t0:.1f} s")
+
+
+def phase_cli(card: str) -> None:
+    """The command line at full geometry: --long --quantize int8 under
+    --profile; a WAV of audio and a trace file."""
+    import tempfile
+    from qwen3_tts_tpu_torch import cli
+    with tempfile.TemporaryDirectory() as d:
+        wav, prof = os.path.join(d, "cli.wav"), os.path.join(d, "prof")
+        t0 = time.perf_counter()
+        rc = cli.main(["--long", "--quantize", "int8", "--profile", prof,
+                       "--output", wav])
+        wall = time.perf_counter() - t0
+        check(rc == 0, f"cli: exit {rc}")
+        size = os.path.getsize(wav)
+        traces = os.listdir(prof)
+        check(size > 44, f"cli: WAV of {size} bytes")
+        check(any(t.endswith(".json") for t in traces),
+              f"cli: no trace in {traces}")
+        print(f"cli --long --quantize int8 --profile: exit 0, WAV {size} "
+              f"bytes, trace {traces}, {wall:.1f} s with the engine's "
+              f"set-up [{card}]")
+
+
 def phase_kernel_profiles(eng, card: str, k3: dict, k2: dict) -> None:
     """After every kernel is timed (a torch.profiler session slows later
     chains of dependent launches in the process by a few percent): K3 and
@@ -541,6 +955,7 @@ def phase_slice(eng, card: str, counters: dict) -> dict:
         fn.launches = 0
     tokens = 0
     for i, text in enumerate(TEXTS):
+        eng._prefix_cache.clear()      # a cold request: it prefills
         before = {k: fn.launches for k, fn in counters.items()}
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -604,6 +1019,7 @@ def phase_stream_engine(eng, card: str, counters: dict) -> None:
         pieces = []
         if mode == "streaming":
             kw.update(streaming=True, on_chunk=pieces.append)
+        eng._prefix_cache.clear()      # cold requests: each prefills
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = eng.synthesize(text, seed=seed, **kw)
@@ -833,6 +1249,7 @@ def phase_profile(eng, card: str) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
     from qwen3_tts_tpu_torch.tools import bench_e2e
+    eng._prefix_cache.clear()          # a cold request: it prefills
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1487,6 +1904,7 @@ def main() -> int:
     phase_stream_engine(eng, card, counters)
     phase_stream_batcher(params, card, counters)
     phase_chunked_vocoder(eng, card)
+    phase_engine_surface(eng, params, card, counters)
     by_name = {k["name"]: k for k in kernels}
     phase_kernel_profiles(eng, card, by_name["talker_step"],
                           by_name["cp_decode"])
@@ -1500,6 +1918,7 @@ def main() -> int:
     phase_synth_batch(card, counters)
     launches.update(kv8)
     launches.update(phase_microbench_merged(card, counters))
+    phase_cli(card)
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}))

@@ -1,32 +1,42 @@
 """TTSEngine: synthesis, text -> codes -> 24 kHz int16 audio, one
-request (``synthesize``, whole or streamed) or several in one batched
-decode (``synthesize_batch``). Twin of qwen3_tts_tpu/engine/engine.py.
+request (``synthesize``, whole or streamed), several in one batched
+decode (``synthesize_batch``), or a paragraph in sentence pieces
+(``synthesize_long``). Twin of qwen3_tts_tpu/engine/engine.py.
 
 tokenize -> dual-stream prefix -> talker prefill -> decode loop
-(engine/generate.py) -> FP32 vocoder -> optional WAV. Non-streaming
-requests vocode through ``vocoder.synthesize_exact``: one window of
-voc_bucket(n + 1) tokens up to 256 tokens, left-context chunks past
-that. ``streaming=True`` decodes the head in chunks of 8 and 56 tokens,
-then the rest in one call, and hands each piece of audio to
-``on_chunk`` as soon as it is final, through the incremental vocoder
-stream (models/vocoder_stream: O(new tokens) an emission, within +-1
-LSB of the non-streaming audio).
+(engine/generate.py) -> FP32 vocoder -> optional WAV. The post-prefill
+state of a prefix is kept in a small LRU (``_prefix_cache``, 4 entries)
+and, with ``kv_cache_dir`` set, in an npz file the JAX engine reads too;
+a request decodes a copy of it, since the loop updates the KV cache and
+the codes buffer in place. ``prompt_dir`` clones a voice: the reference
+transcript and codec frames join the prefix (models/talker.
+build_prefix_cloned). Non-streaming requests vocode through
+``vocoder.synthesize_exact``: one window of voc_bucket(n + 1) tokens up to
+256 tokens, left-context chunks past that. ``streaming=True`` decodes the
+head in chunks of 8 and 56 tokens, then the rest in one call, and hands
+each piece of audio to ``on_chunk`` as soon as it is final, through the
+incremental vocoder stream (models/vocoder_stream: O(new tokens) an
+emission, within +-1 LSB of the non-streaming audio).
 ``SynthesisResult.first_audio_seconds`` is the wall time until the first
 samples reach the host. With ``quantize="int8"`` (or int8 trees in
 ``params``) the decode loop runs the hand-written kernels K1 (int8
 products), K2 (code predictor steps) and K3 (talker decode step, up to 8
-rows); with ``TalkerConfig(attention_impl="pallas")`` a per-layer talker
-step's attention runs on K5.
+rows); ``quantize="int8-cp"`` keeps the talker dense (K1 and K2 only);
+with ``TalkerConfig(attention_impl="pallas")`` a per-layer talker step's
+attention runs on K5.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import math
+import os
 import sys
 import time
-from typing import Dict, List, Optional
+from collections import OrderedDict
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,6 +57,7 @@ from qwen3_tts_tpu_torch.models import vocoder_stream as vstream
 from qwen3_tts_tpu_torch.models.code_predictor import CodePredictor
 from qwen3_tts_tpu_torch.ops import quant
 from qwen3_tts_tpu_torch.ops import sampling as smp
+from qwen3_tts_tpu_torch.utils.text import piece_token_budget, split_for_budget
 
 
 @dataclasses.dataclass
@@ -111,12 +122,19 @@ def _stage(timings: Dict[str, float], name: str):
 class TTSEngine:
     """Single-request TTS engine on one device. ``model_dir=None`` runs
     with random weights drawn from ``seed``; ``params`` supplies weights
-    in the port's layout (io/weights.py) instead. A talker or code
+    in the port's layout (io/weights.py) instead. ``quantize``: None
+    (dense), "int8" (talker and code predictor) or "int8-cp" (only the
+    code predictor; a dense talker in ``dtype``). A talker or code
     predictor in ``params`` that is already int8 (quant.quantize_talker,
-    quantize_code_predictor) is kept as it is; ``quantize="int8"``
-    quantizes the halves that are still dense, and ``self.quantize``
-    reports the state: "int8", "int8-cp" (only the code predictor) or
-    "int8-talker" (only the talker)."""
+    quantize_code_predictor) is kept as it is, except that "int8-cp"
+    dequantizes an int8 talker (quant.dequantize_talker); the halves that
+    ``quantize`` asks for and are still dense are quantized, and
+    ``self.quantize`` reports the state: "int8", "int8-cp" (only the code
+    predictor) or "int8-talker" (only the talker).
+
+    ``kv_cache_dir`` (an attribute, None by default): a directory where
+    post-prefill states are also kept as ``qwen3_kv_<hash>.npz`` files,
+    the JAX engine's format and names."""
 
     def __init__(self, cfg: Optional[TTSConfig] = None,
                  model_dir: Optional[str] = None,
@@ -128,7 +146,7 @@ class TTSEngine:
             raise NotImplementedError(
                 "checkpoint loading is not ported yet (ROADMAP: HF "
                 "safetensors loading); pass params= or model_dir=None")
-        if quantize not in (None, "int8"):
+        if quantize not in (None, "int8", "int8-cp"):
             raise ValueError(f"unsupported quantize={quantize!r}")
         self.cfg = cfg or TTSConfig()
         self.device = torch.device(device)
@@ -138,19 +156,25 @@ class TTSEngine:
         pre_t = quant.is_quantized(params["talker"])
         pre_c = quant.is_quantized(params["code_predictor"])
         if pre_t or pre_c:
-            # never quantize twice; quantize="int8" fills in a dense half
-            if quantize == "int8":
-                if not pre_t:
-                    params["talker"] = quant.quantize_talker(
-                        params["talker"])
-                if not pre_c:
-                    params["code_predictor"] = \
-                        quant.quantize_code_predictor(params["code_predictor"])
-                pre_t = pre_c = True
+            # never quantize twice; an int8 talker under "int8-cp" is
+            # made dense, and a dense half that quantize asks for is
+            # quantized
+            if pre_t and quantize == "int8-cp":
+                params["talker"] = quant.dequantize_talker(params["talker"],
+                                                           dtype)
+                pre_t = False
+            if not pre_t and quantize == "int8":
+                params["talker"] = quant.quantize_talker(params["talker"])
+                pre_t = True
+            if not pre_c and quantize in ("int8", "int8-cp"):
+                params["code_predictor"] = quant.quantize_code_predictor(
+                    params["code_predictor"])
+                pre_c = True
             quantize = ("int8" if pre_t and pre_c
                         else "int8-cp" if pre_c else "int8-talker")
-        elif quantize == "int8":
-            params["talker"] = quant.quantize_talker(params["talker"])
+        elif quantize in ("int8", "int8-cp"):
+            if quantize == "int8":
+                params["talker"] = quant.quantize_talker(params["talker"])
             params["code_predictor"] = quant.quantize_code_predictor(
                 params["code_predictor"])
         self.quantize = quantize
@@ -168,39 +192,216 @@ class TTSEngine:
         # bank playout headroom, then the rest in one run_steps call
         self.head_schedule = (8, 56)
         self._stream_stepper = vstream.StreamStepper(c.vocoder)
+        # post-prefill states by prefix, least recently used first
+        self._prefix_cache: "OrderedDict[tuple, gen.GenState]" = \
+            OrderedDict()
+        self._prefix_cache_cap = 4
+        self.kv_cache_dir: Optional[str] = None
 
-    def _encode_text(self, text: str):
-        """Token ids padded to a bucket that fits the KV allocation; text
-        past it is truncated with a warning. Returns (ids, n)."""
+    def _encode_text(self, text: str) -> Tuple[np.ndarray, int]:
+        """Token ids on the host, padded to a bucket that fits the KV
+        allocation; text past it is truncated with a warning. Returns
+        (ids np.int32, n)."""
         ids = self.tokenizer.encode(text, add_special_tokens=False)
-        limit = self.cfg.talker.max_seq_len - tk.PREFIX_EXTRA
-        b = _bucket(len(ids))
-        if b > limit:
-            fits = [bk for bk in _TEXT_BUCKETS if bk <= limit]
-            b = fits[-1] if fits else max(limit, 1)
+        b = min(_bucket(len(ids)), self._text_cap())
         if len(ids) > b:
             print(f"warning: text truncated to {b} of {len(ids)} tokens "
-                  f"(max_seq_len={self.cfg.talker.max_seq_len})",
+                  f"(max_seq_len={self.cfg.talker.max_seq_len}); use "
+                  f"synthesize_long / --long for paragraph-length text",
                   file=sys.stderr)
-        padded = torch.zeros((b,), dtype=torch.int32)
+        padded = np.zeros((b,), np.int32)
         n = min(len(ids), b)
-        padded[:n] = torch.tensor(ids[:n], dtype=torch.int32)
-        return padded.to(self.device), n
+        padded[:n] = ids[:n]
+        return padded, n
+
+    def _text_cap(self) -> int:
+        """The largest text bucket whose prefix fits the KV allocation."""
+        limit = self.cfg.talker.max_seq_len - tk.PREFIX_EXTRA
+        fits = [bk for bk in _TEXT_BUCKETS if bk <= limit]
+        return fits[-1] if fits else max(limit, 1)
 
     def vocode(self, codes: np.ndarray) -> np.ndarray:
         """codes (n, 16) -> int16 audio (n * 1920,) through
         voc.synthesize_exact (see the module function ``vocode``)."""
         return vocode(self._vp, codes, self.cfg.vocoder, self.device)
 
-    def _prefill(self, text_ids, n_text: int, seed: int,
-                 budget_cap: int) -> gen.GenState:
-        """Prefix, talker prefill and the loop state of one request."""
-        prefix, plen = tk.build_prefix(self._tp, text_ids, n_text)
-        n_text_t = torch.tensor([n_text], dtype=torch.int32,
+    # -- prefixes and their post-prefill states ------------------------
+    def _prefill_state(self, ids: np.ndarray, n_text: int, n_pace: int,
+                       ref=None) -> gen.GenState:
+        """Prefix and talker prefill: the post-prefill state that the
+        prefix cache keeps (cloned with ``ref``, tk.request_prefix). EOS
+        pacing counts ``n_pace`` text tokens."""
+        prefix, plen = tk.request_prefix(self._tp, self._cpp["codec_embs"],
+                                         ids, n_text, ref)
+        n_pace_t = torch.tensor([n_pace], dtype=torch.int32,
                                 device=self.device)
-        return gen.init_state(self._tp, prefix[None], plen[None], n_text_t,
-                              smp.batch_keys(seed, 1), self.cfg,
-                              budget=budget_cap)
+        return gen.init_state(self._tp, prefix[None], plen[None], n_pace_t,
+                              smp.batch_keys(0, 1), self.cfg)
+
+    def _cache_get(self, k) -> Optional[gen.GenState]:
+        snap = self._prefix_cache.get(k)
+        if snap is not None:
+            self._prefix_cache.move_to_end(k)
+        return snap
+
+    def _cache_put(self, k, snap: gen.GenState) -> None:
+        self._prefix_cache[k] = snap
+        while len(self._prefix_cache) > self._prefix_cache_cap:
+            self._prefix_cache.popitem(last=False)
+
+    def _request_state(self, snap: gen.GenState, seed: int,
+                       budget_cap: int) -> gen.GenState:
+        """One request's loop state: a copy of the snapshot with the
+        request's key and token budget."""
+        return gen.copy_state(
+            snap, key=smp.batch_keys(seed, 1).to(self.device),
+            budget=torch.tensor([budget_cap], dtype=torch.int32,
+                                device=self.device))
+
+    def _prefill(self, ids: np.ndarray, n_text: int, seed: int,
+                 budget_cap: int) -> gen.GenState:
+        """The request's post-prefill state through the prefix cache:
+        memory, then the ``kv_cache_dir`` file, then a prefill (saved to
+        that file). The key is built from the host ids."""
+        k = (tuple(ids.tolist()), int(n_text))
+        snap = self._cache_get(k)
+        if snap is None:
+            path = None
+            if self.kv_cache_dir is not None:
+                h = hashlib.md5(ids.astype(np.int32).tobytes()
+                                + str(int(n_text)).encode()).hexdigest()
+                path = os.path.join(self.kv_cache_dir,
+                                    f"qwen3_kv_{h[:16]}.npz")
+                if os.path.exists(path):
+                    try:
+                        snap = self._load_state_npz(path)
+                        path = None         # no need to save it again
+                    except Exception as e:  # any unreadable file
+                        print(f"warning: prefix cache file {path} not "
+                              f"loaded ({e}); recomputing", file=sys.stderr)
+            if snap is None:
+                snap = self._prefill_state(ids, n_text, n_text)
+                if path is not None:
+                    try:
+                        self._save_state_npz(path, snap)
+                    except OSError as e:
+                        print(f"warning: prefix cache file {path} not "
+                              f"written ({e})", file=sys.stderr)
+            self._cache_put(k, snap)
+        return self._request_state(snap, seed, budget_cap)
+
+    def _save_state_npz(self, path: str, state: gen.GenState) -> None:
+        """A post-prefill state as an npz of the JAX engine's fields:
+        bf16 as f32 (npz has no bf16), and ``step``, the JAX loop's
+        counter, as 0."""
+        flat = {"step": np.zeros((), np.int32)}
+        for f in dataclasses.fields(state):
+            a = getattr(state, f.name)
+            if a.dtype == torch.bfloat16:
+                a = a.float()
+            flat[f.name] = a.cpu().numpy()
+        np.savez(path, **flat)
+
+    def _load_state_npz(self, path: str) -> gen.GenState:
+        """A state saved by this engine or the JAX one. ``step`` and
+        ``key`` are not read (a request brings its own key); a file
+        without ``budget`` loads with cfg.max_tokens; kv and hidden come
+        back in the talker's dtype."""
+        names = [f.name for f in dataclasses.fields(gen.GenState)
+                 if f.name != "key"]
+        with np.load(path) as data:
+            arrays = {f: data[f] for f in names if f in data.files}
+        B = arrays["pos"].shape[0]
+        arrays.setdefault("budget",
+                          np.full((B,), self.cfg.max_tokens, np.int32))
+        tcfg = self.cfg.talker
+        want = (tcfg.num_layers, 2, B, tcfg.max_seq_len, tcfg.num_kv_heads,
+                tcfg.head_dim)
+        if (tuple(arrays["kv"].shape) != want
+                or arrays["codes"].shape[1:] != (self.cfg.max_tokens, 16)):
+            raise ValueError(f"state of another geometry: kv "
+                             f"{arrays['kv'].shape}, codes "
+                             f"{arrays['codes'].shape}")
+        t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
+             for k, v in arrays.items()}
+        dt = self._tp["codec_embedding"].dtype
+        t["kv"], t["hidden"] = t["kv"].to(dt), t["hidden"].to(dt)
+        return gen.GenState(**t, key=smp.batch_keys(0, B).to(self.device))
+
+    # -- voice cloning -------------------------------------------------
+    def _load_prompt(self, prompt_dir: str):
+        """A voice-cloning prompt dir: ref_codec_tokens.npy ((R, >= 16)
+        codec frames) and an optional ref_text.txt (the reference
+        transcript), the format tools/encode_reference_audio.py writes.
+        Returns (codes (R, 16) np.int32, ref_text)."""
+        try:
+            codes = np.load(os.path.join(prompt_dir, "ref_codec_tokens.npy"))
+            codes = np.asarray(codes, np.int32)[:, :16]
+        except (OSError, ValueError, IndexError) as e:
+            raise ValueError(f"invalid prompt_dir {prompt_dir!r}: {e}") from e
+        txt_path = os.path.join(prompt_dir, "ref_text.txt")
+        ref_text = ""
+        if os.path.exists(txt_path):
+            with open(txt_path) as f:
+                ref_text = f.read().strip()
+        return codes, ref_text
+
+    def _encode_cloned(self, text: str, ref_text: str):
+        """Ids over ``ref_text + ' ' + text`` and the target text's own
+        token count (EOS pacing). Raises ValueError when the two overflow
+        the prefix bucket: truncation would cut the target's tail while
+        the pacing still budgets for it. Returns (ids, n_text,
+        n_target)."""
+        full = (ref_text + " " + text).strip() if ref_text else text
+        ids, n_text = self._encode_text(full)
+        n_full = len(self.tokenizer.encode(full, add_special_tokens=False))
+        if n_full > n_text:
+            raise ValueError(
+                f"voice-cloned text overflows the prefix: reference "
+                f"transcript + target encode to {n_full} tokens but the "
+                f"prefix holds {n_text} "
+                f"(max_seq_len={self.cfg.talker.max_seq_len}); shorten "
+                f"the reference transcript or use synthesize_long/--long")
+        n_target = min(len(self.tokenizer.encode(
+            text, add_special_tokens=False)), n_text)
+        return ids, n_text, n_target
+
+    def _cloned_piece_budget(self, budget: int, ref_text: str) -> int:
+        """A paragraph piece's token budget tightened so that the
+        reference transcript and the piece fit the text bucket (a margin
+        of 2 for the separator and token boundaries); raises when the
+        transcript alone leaves no room."""
+        n_ref = len(self.tokenizer.encode(ref_text,
+                                          add_special_tokens=False))
+        room = self._text_cap() - n_ref - 2
+        if room < 2:
+            raise ValueError(
+                f"reference transcript is too long for voice cloning: "
+                f"{n_ref} tokens of a {self._text_cap()}-token prefix "
+                f"budget; re-encode the prompt with a shorter ref_text")
+        return max(2, min(budget, room))
+
+    def _prefill_cloned(self, ids: np.ndarray, n_text: int, n_target: int,
+                        ref_codes: np.ndarray, seed: int,
+                        budget_cap: int) -> gen.GenState:
+        """The cloned request's post-prefill state through the prefix
+        cache: the reference frames clamped to the KV allocation and
+        bucketed (tk.cloned_ref_limit, tk.bucket_ref_frames), keyed by
+        (ids, n_text, n_target, padded ref bytes, n_ref)."""
+        S = self.cfg.talker.max_seq_len
+        padded, n_ref = tk.bucket_ref_frames(
+            tk.cloned_ref_limit(S, len(ids)), ref_codes)
+        if n_ref < len(ref_codes):
+            print(f"warning: reference audio truncated to {n_ref} frames "
+                  f"(max_seq_len={S})", file=sys.stderr)
+        k = (tuple(ids.tolist()), int(n_text), int(n_target),
+             padded.tobytes(), int(n_ref))
+        snap = self._cache_get(k)
+        if snap is None:
+            snap = self._prefill_state(ids, n_text, n_target,
+                                       (padded, n_ref))
+            self._cache_put(k, snap)
+        return self._request_state(snap, seed, budget_cap)
 
     def _run(self, state: gen.GenState, steps: int) -> gen.GenState:
         return gen.run_steps(self._tp, self._cpp, state, self.cfg, steps)
@@ -220,14 +421,13 @@ class TTSEngine:
                    on_chunk=None) -> SynthesisResult:
         """Full pipeline: text -> codes -> audio. ``language`` is
         validated but, as in the reference, does not change the prefix.
+        ``prompt_dir``: a voice-cloning prompt (``_load_prompt``); the
+        reference speaker's frames condition the decode in-context.
         ``max_tokens`` caps this request's tokens. ``on_chunk`` (with
         ``streaming=True``) is called with each np.int16 piece of audio as
         soon as it is final; the pieces concatenate to ``audio_int16``.
-        Codes do not depend on ``streaming``."""
-        if prompt_dir is not None:
-            raise NotImplementedError(
-                "voice cloning (prompt_dir) is not ported yet (ROADMAP "
-                "queue 1: voice cloning and the encoder)")
+        Codes do not depend on ``streaming``. The WAV is written when
+        ``output`` is given and audio was generated."""
         if language not in SUPPORTED_LANGUAGES:
             raise ValueError(f"unsupported language {language!r}; expected "
                              f"one of {SUPPORTED_LANGUAGES}")
@@ -240,11 +440,23 @@ class TTSEngine:
         timings: Dict[str, float] = {}
         t_start = time.perf_counter()
         with _stage(timings, "tokenize"):
-            text_ids, n_text = self._encode_text(text)
+            if prompt_dir is not None:
+                ref_codes, ref_text = self._load_prompt(prompt_dir)
+                ids, n_text, pace_n = self._encode_cloned(text, ref_text)
+            else:
+                ids, n_text = self._encode_text(text)
+                # a cloned request paces EOS on the target's count alone
+                pace_n = n_text
+
+        def prefill() -> gen.GenState:
+            if prompt_dir is None:
+                return self._prefill(ids, n_text, seed, budget)
+            return self._prefill_cloned(ids, n_text, pace_n, ref_codes,
+                                        seed, budget)
+
         if not streaming:
             with _stage(timings, "decode"):
-                state = self._run(self._prefill(text_ids, n_text, seed,
-                                                budget), budget)
+                state = self._run(prefill(), budget)
                 n = int(state.n_codes[0])
                 codes = state.codes[0, :n].cpu().numpy()
             with _stage(timings, "vocoder"):
@@ -253,14 +465,13 @@ class TTSEngine:
         else:
             with _stage(timings, "prefill"):
                 # the first head chunk runs with the prefill
-                head = min(self.head_schedule[0], budget)
-                state = self._run(self._prefill(text_ids, n_text, seed,
-                                                budget), head)
+                state = self._run(prefill(),
+                                  min(self.head_schedule[0], budget))
             with _stage(timings, "decode+vocoder"):
-                audio, n, codes, first = self._stream(state, budget, n_text,
+                audio, n, codes, first = self._stream(state, budget, pace_n,
                                                       on_chunk, t_start)
         audio = voc.to_int16(audio)
-        if output:
+        if output and len(audio):
             wav_io.write_wav(output, audio)
         total = time.perf_counter() - t_start
         seconds = len(audio) / SAMPLE_RATE
@@ -270,7 +481,7 @@ class TTSEngine:
             rtf=total / seconds if seconds > 0 else float("inf"),
             first_audio_seconds=first if n > 0 else None)
 
-    def _stream(self, state, budget: int, n_text: int, on_chunk,
+    def _stream(self, state, budget: int, pace_n: int, on_chunk,
                 t_start: float):
         """Streaming on models/vocoder_stream: after each head chunk the
         stream is advanced over the chunk's new final frames in
@@ -280,7 +491,9 @@ class TTSEngine:
         samples, are launched before the token count is read, and trimmed
         to it. The kept samples equal the non-streaming decode within the
         stream contract (+-1 LSB). The stream's position is a host int.
-        Returns (int16 audio, n, codes, first-audio seconds)."""
+        ``pace_n``: the text tokens the decode paces EOS on (the target's
+        alone for a cloned request). Returns (int16 audio, n, codes,
+        first-audio seconds)."""
         stepper = self._stream_stepper
         stream = vstream.Stream()
         pending: List[vstream.Segment] = []
@@ -334,7 +547,7 @@ class TTSEngine:
                 state = self._run(state, budget - decoded)
             # every possibly final frame, launched before the token count
             # is read; the overshoot is trimmed
-            advance(min(_pacing_bound(budget, n_text, self.cfg.sampling),
+            advance(min(_pacing_bound(budget, pace_n, self.cfg.sampling),
                         int(state.codes.shape[1])), True)
         n = int(state.n_codes[0])
         codes = state.codes[0, :n].cpu().numpy()
@@ -369,11 +582,11 @@ class TTSEngine:
         t_start = time.perf_counter()
         with _stage(timings, "tokenize"):
             encoded = [self._encode_text(t) for t in texts]
-            bucket = max(int(ids.shape[0]) for ids, _ in encoded)
-            ids = torch.zeros((B, bucket), dtype=torch.int32,
-                              device=self.device)
+            bucket = max(len(row) for row, _ in encoded)
+            ids_np = np.zeros((B, bucket), np.int32)
             for i, (row, _) in enumerate(encoded):
-                ids[i, :row.shape[0]] = row
+                ids_np[i, :len(row)] = row
+            ids = torch.from_numpy(ids_np).to(self.device)
             n_text = torch.tensor([n for _, n in encoded], dtype=torch.int32,
                                   device=self.device)
         with _stage(timings, "decode"):
@@ -402,3 +615,102 @@ class TTSEngine:
                 timings=dict(timings), total_seconds=total,
                 rtf=total / dur if dur > 0 else float("inf")))
         return results
+
+    def synthesize_long(self, text: str, language: str = "russian",
+                        seed: int = 0, output: Optional[str] = None,
+                        max_batch: int = 4, on_chunk=None,
+                        prompt_dir: Optional[str] = None,
+                        max_tokens: Optional[int] = None) -> SynthesisResult:
+        """Paragraph-length text. One request is bounded by
+        ``cfg.max_tokens`` codec tokens, so the text splits into pieces
+        whose encoded token count the decode covers
+        (utils/text.split_for_budget against piece_token_budget). One
+        piece goes to ``synthesize``. Otherwise the first piece decodes
+        alone with ``seed`` (streamed when ``on_chunk`` is given, so the
+        first audio comes after the head chunk), and the rest go in groups
+        of ``max_batch`` through ``synthesize_batch(seed=seed + g)``, g the
+        group's first piece (a group of one through ``synthesize``).
+        ``prompt_dir`` applies to every piece; cloned pieces decode alone,
+        piece j of group g with seed + g + j. ``on_chunk(audio_int16)``
+        gets the audio in order: the first piece in stream pieces, each
+        later piece whole. ``max_tokens`` caps every piece (and tightens
+        the split). Returns one SynthesisResult of the stitched audio and
+        codes."""
+        if language not in SUPPORTED_LANGUAGES:
+            raise ValueError(f"unsupported language {language!r}; expected "
+                             f"one of {SUPPORTED_LANGUAGES}")
+        if max_tokens is not None and max_tokens < 1:
+            raise ValueError(f"max_tokens must be >= 1, got {max_tokens}")
+        budget = piece_token_budget(self.cfg.max_tokens, max_tokens)
+        if prompt_dir is not None:
+            # every cloned piece carries the reference transcript
+            budget = self._cloned_piece_budget(
+                budget, self._load_prompt(prompt_dir)[1])
+        pieces = split_for_budget(
+            text, lambda s: len(self.tokenizer.encode(
+                s, add_special_tokens=False)), budget)
+        if len(pieces) <= 1:
+            return self.synthesize(text, language=language, seed=seed,
+                                   output=output, prompt_dir=prompt_dir,
+                                   max_tokens=max_tokens,
+                                   streaming=on_chunk is not None,
+                                   on_chunk=on_chunk)
+
+        t_start = time.perf_counter()
+        first: Optional[float] = None
+        audio_parts: List[np.ndarray] = []
+        codes_parts: List[np.ndarray] = []
+
+        def emit(a16: np.ndarray) -> None:
+            nonlocal first
+            if not len(a16):
+                return
+            if first is None:
+                first = time.perf_counter() - t_start
+            if on_chunk is not None:
+                on_chunk(a16)
+
+        start = 0
+        if prompt_dir is None:
+            # the first piece decodes alone in both modes (its stream is
+            # its non-streaming decode within +-1 LSB, its codes equal)
+            r0 = self.synthesize(pieces[0], language=language, seed=seed,
+                                 streaming=on_chunk is not None,
+                                 max_tokens=max_tokens,
+                                 on_chunk=emit if on_chunk is not None
+                                 else None)
+            codes_parts.append(r0.codes)
+            audio_parts.append(r0.audio_int16)
+            if on_chunk is None:
+                emit(r0.audio_int16)    # stamps the first audio
+            start = 1
+        for g in range(start, len(pieces), max_batch):
+            group = pieces[g:g + max_batch]
+            if prompt_dir is not None:
+                rs = [self.synthesize(p, language=language, seed=seed + g + j,
+                                      prompt_dir=prompt_dir,
+                                      max_tokens=max_tokens)
+                      for j, p in enumerate(group)]
+            elif len(group) == 1:
+                rs = [self.synthesize(group[0], language=language,
+                                      seed=seed + g, max_tokens=max_tokens)]
+            else:
+                rs = self.synthesize_batch(group, [language] * len(group),
+                                           seed=seed + g,
+                                           max_tokens=max_tokens)
+            for r in rs:
+                codes_parts.append(r.codes)
+                audio_parts.append(r.audio_int16)
+                emit(r.audio_int16)
+
+        audio = np.concatenate(audio_parts)
+        codes = np.concatenate(codes_parts)
+        total = time.perf_counter() - t_start
+        seconds = len(audio) / SAMPLE_RATE
+        if output and len(audio):
+            wav_io.write_wav(output, audio)
+        return SynthesisResult(
+            audio_int16=audio, codes=codes, n_tokens=len(codes),
+            timings={"total": total}, total_seconds=total,
+            rtf=total / seconds if seconds > 0 else float("inf"),
+            first_audio_seconds=first)

@@ -95,6 +95,16 @@ def init_state(talker_params: dict, prefix: torch.Tensor,
     return assemble_state(hidden, kv, prefix_len, n_text, key, cfg, budget)
 
 
+def copy_state(state: GenState, **changes) -> GenState:
+    """A copy of a dense-cache ``state`` that a decode may update in
+    place (``_loop_body`` writes the KV cache and the codes buffer in
+    place), with ``changes`` replacing fields: the engine keeps its
+    post-prefill snapshots pristine and decodes a copy of one."""
+    fields = {f.name: getattr(state, f.name)
+              for f in dataclasses.fields(state) if f.name not in changes}
+    return GenState(**{k: v.clone() for k, v in fields.items()}, **changes)
+
+
 def _loop_body(state: GenState, talker_params: dict, cp_params: dict,
                tts_pad_embed: torch.Tensor, cfg: TTSConfig,
                rope_table: Optional[tuple] = None) -> GenState:

@@ -6,6 +6,7 @@ from __future__ import annotations
 
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from qwen3_tts_tpu_torch.config import (
@@ -100,6 +101,93 @@ def build_prefix(params: dict, text_token_ids: torch.Tensor,
                                                final_row[None], zeros)))
     prefix = torch.cat([role, think, transition, tail], dim=0)
     return prefix.to(text_e.dtype), n_text + PREFIX_EXTRA
+
+
+def clone_frame_embeds(params: dict, cp_codec_embs: torch.Tensor,
+                       ref_codes: torch.Tensor) -> torch.Tensor:
+    """Prefix-continuation embeddings of reference codec frames (voice
+    cloning): the decode loop's feedback formula applied to (R, 16)
+    codes, codec_embedding[c_0] + sum_g cp_codec_embs[g-1][c_g] +
+    tts_pad_embed per frame."""
+    ce = params["codec_embedding"]
+    dev = ref_codes.device
+    tts_pad_e = embed_text(
+        params, torch.tensor([TTS_PAD_TOKEN_ID], device=dev))[0]
+    codes = ref_codes.long()
+    c0 = ce[codes[:, 0]]                                       # (R, H)
+    g_idx = torch.arange(cp_codec_embs.shape[0], device=dev)[None, :]
+    rest = cp_codec_embs[g_idx, codes[:, 1:]].sum(dim=1)
+    return c0 + rest.to(c0.dtype) + tts_pad_e[None, :]
+
+
+def build_prefix_cloned(params: dict, cp_codec_embs: torch.Tensor,
+                        text_token_ids: torch.Tensor, n_text,
+                        ref_codes: torch.Tensor,
+                        n_ref: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """In-context voice-cloning prefix: the dual-stream prefix over the
+    reference transcript followed by the target text (``text_token_ids``,
+    N_pad), then the reference audio's codec frames (``ref_codes``, R_pad
+    rows of which the first ``n_ref`` are real) as continuation rows, so
+    the decode continues the reference speaker into the target text.
+    Returns (prefix (N_pad + PREFIX_EXTRA + R_pad, H), prefix_len =
+    n_text + PREFIX_EXTRA + n_ref)."""
+    prefix, plen = build_prefix(params, text_token_ids, n_text)
+    frames = clone_frame_embeds(params, cp_codec_embs,
+                                ref_codes).to(prefix.dtype)
+    R = frames.shape[0]
+    rows = torch.arange(R, device=frames.device)
+    out = torch.cat([prefix, torch.zeros_like(frames)], dim=0)
+    vals = torch.where((rows < n_ref)[:, None], frames,
+                       torch.zeros_like(frames))
+    # the base prefix is zero from plen on, so adding places the frames
+    # at [plen, plen + n_ref), as the JAX package's scatter-add does
+    out.index_add_(0, plen.long() + rows, vals)
+    return out, plen + int(n_ref)
+
+
+def request_prefix(params: dict, cp_codec_embs: torch.Tensor,
+                   ids: np.ndarray, n_text: int,
+                   ref=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """A request's prefix from its host ids, on the talker's device and in
+    its dtype: the dual-stream prefix, or with ``ref`` = (padded reference
+    frames (b, 16), n_ref) from bucket_ref_frames the cloned one. The
+    engine and the batcher both build their prefixes here, so one prompt
+    gives both the same prefix. Returns (prefix (P, H), prefix_len)."""
+    ce = params["codec_embedding"]
+    ids_t = torch.from_numpy(ids).to(ce.device)
+    if ref is None:
+        prefix, plen = build_prefix(params, ids_t, n_text)
+    else:
+        padded, n_ref = ref
+        prefix, plen = build_prefix_cloned(
+            params, cp_codec_embs, ids_t, n_text,
+            torch.from_numpy(padded).to(ce.device), n_ref)
+    return prefix.to(ce.dtype), plen
+
+
+def cloned_ref_limit(cap: int, text_pad: int) -> int:
+    """KV rows a cloning request's reference frames may take: the
+    allocation ``cap`` less the padded text rows, the PREFIX_EXTRA
+    special rows and 8 rows of decode headroom. The one home of this
+    clamp: the engine and the batcher must build the same cloned prefix
+    for the same prompt."""
+    return max(int(cap) - PREFIX_EXTRA - int(text_pad) - 8, 0)
+
+
+def bucket_ref_frames(limit: int, ref_codes_np) -> Tuple[np.ndarray, int]:
+    """The reference codec frames clamped to ``limit`` rows and zero-padded
+    to a bucket (16/32/64/128/256, none past the limit; past those a
+    multiple of 64 of the kept length, clamped to the limit). Shared by
+    the engine and the batcher, so both pad alike. Returns (padded (b, 16)
+    np.int32, n_ref kept)."""
+    n_ref = min(len(ref_codes_np), max(int(limit), 0))
+    b = next((bk for bk in (16, 32, 64, 128, 256)
+              if n_ref <= bk and bk <= limit), None)
+    if b is None:
+        b = max(min(-(-n_ref // 64) * 64, max(int(limit), 1)), 1)
+    padded = np.zeros((b, 16), np.int32)
+    padded[:n_ref] = np.asarray(ref_codes_np, np.int32)[:n_ref, :16]
+    return padded, n_ref
 
 
 def prefill(params: dict, prefix: torch.Tensor, prefix_len: torch.Tensor,

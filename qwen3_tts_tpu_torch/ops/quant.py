@@ -135,3 +135,33 @@ def quantize_code_predictor(params: dict) -> dict:
     out["layers"] = quantize_layer_stack(params["layers"])
     out["lm_heads"] = quantize_int8(params["lm_heads"])
     return attach_layer_list(out)
+
+
+def dequantize_talker(params: dict, dtype=torch.bfloat16) -> dict:
+    """Inverse of quantize_talker: the standard dense layout (separate
+    q/k/v and gate/up projections) in ``dtype``, rebuilt from the fused
+    int8 one. The values are what the int8 talker computes with (q *
+    scale), not the checkpoint's. Used where a dense talker is asked for
+    and the weights came int8: the int8-cp engine and the batcher."""
+    layers = dict(params["layers"])
+    qkv = dequantize(layers.pop("qkv_proj"), dtype)      # (L, H, QD+2KVD)
+    gu = dequantize(layers.pop("gateup_proj"), dtype)    # (L, H, 2I)
+    o = layers["o_proj"]
+    QD = (o.q if isinstance(o, QTensor) else o).shape[1]
+    KVD = (qkv.shape[-1] - QD) // 2
+    inter = gu.shape[-1] // 2
+    for name, w in (("q_proj", qkv[..., :QD]),
+                    ("k_proj", qkv[..., QD:QD + KVD]),
+                    ("v_proj", qkv[..., QD + KVD:]),
+                    ("gate_proj", gu[..., :inter]),
+                    ("up_proj", gu[..., inter:])):
+        layers[name] = w.contiguous()
+    for name in ("o_proj", "down_proj"):
+        if isinstance(layers[name], QTensor):
+            layers[name] = dequantize(layers[name], dtype)
+    out = dict(params)
+    out.pop("layers_list", None)
+    out["layers"] = layers
+    if isinstance(out.get("codec_head"), QTensor):
+        out["codec_head"] = dequantize(out["codec_head"], dtype)
+    return out

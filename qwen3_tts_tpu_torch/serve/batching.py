@@ -20,6 +20,10 @@ Twin of qwen3_tts_tpu/serve/batching.py at pipeline_depth=1.
   (``quantize_cp``), so at batch <= 8 the 14 CP steps run on K2; with
   ``TalkerConfig(attention_impl="pallas")`` a dense step's attention runs
   on K5.
+- A cloning request (``submit(ref_codes=..., n_target=...)``) admits with
+  the cloned prefix that the engine builds for the same prompt
+  (talker.cloned_ref_limit, bucket_ref_frames, request_prefix), and
+  paces EOS on its target text's ``n_target`` tokens.
 - A finished slot is vocoded through vocoder.synthesize_exact (one window
   up to 256 tokens, left-context chunks past that). A streaming request
   (``submit(on_chunk=...)``) instead advances its own incremental
@@ -28,8 +32,8 @@ Twin of qwen3_tts_tpu/serve/batching.py at pipeline_depth=1.
   host; its segments concatenate to its audio within the stream
   contract (int16 +-1 LSB).
 
-Not ported yet, and refused with the ROADMAP item named: voice cloning
-(``ref_codes``), ``pipeline_depth=2`` and a device ``mesh``.
+Not ported yet, and refused with the ROADMAP item named:
+``pipeline_depth=2`` and a device ``mesh``.
 """
 
 from __future__ import annotations
@@ -69,11 +73,18 @@ class OverloadedError(RuntimeError):
 class _Request:
     def __init__(self, text_ids: np.ndarray, n_text: int, seed: int,
                  max_tokens: Optional[int] = None, priority: int = 0,
-                 order: int = 0, on_chunk=None):
+                 order: int = 0, on_chunk=None, ref_codes=None,
+                 n_target: Optional[int] = None):
         self.text_ids = text_ids
         self.n_text = int(n_text)
         self.seed = seed
         self.max_tokens = max_tokens
+        # voice cloning: the reference frames (R, 16), the target text's
+        # token count (EOS pacing), and (padded frames, n_ref) once the
+        # admission has bucketed them
+        self.ref_codes = ref_codes
+        self.n_target = n_target
+        self.cloned_prep: Optional[tuple] = None
         # streaming: called on the scheduler thread with each new int16
         # segment; it must queue the segment and return
         self.on_chunk = on_chunk
@@ -197,7 +208,7 @@ class ContinuousBatcher:
                 talker = quant.quantize_talker(talker)
         elif any(isinstance(v, quant.QTensor)
                  for v in talker["layers"].values()):
-            talker = _dequantize(talker, dtype)
+            talker = quant.dequantize_talker(talker, dtype)
         cpp = params["code_predictor"]
         if quantize_cp and not isinstance(cpp["lm_heads"], quant.QTensor):
             cpp = quant.quantize_code_predictor(cpp)
@@ -266,11 +277,15 @@ class ContinuousBatcher:
         vocoder stream and concatenate to the Future's audio, which equals
         the non-streaming audio within +-1 LSB. If a segment fails (its
         step or its fetch, or on_chunk raising), no later segment is
-        emitted and the Future raises that error."""
-        if ref_codes is not None or n_target is not None:
-            raise NotImplementedError(
-                "voice cloning (ref_codes) " + _ROADMAP.format(
-                    "cloned admission"))
+        emitted and the Future raises that error.
+
+        ``ref_codes`` and ``n_target``: voice cloning. ``text_ids`` then
+        hold the reference transcript followed by the target text (the
+        engine's ``_encode_cloned``), ``ref_codes`` the (R, 16) reference
+        codec frames of a prompt dir, ``n_target`` the target text's
+        token count, on which EOS is paced."""
+        if (ref_codes is None) != (n_target is None):
+            raise ValueError("ref_codes and n_target go together")
         with self._submit_lock:
             if self.max_queue is not None:
                 depth = (self._queue.qsize() + len(self._waiting)
@@ -282,7 +297,10 @@ class ContinuousBatcher:
             self._order += 1
             req = _Request(np.asarray(text_ids, np.int32), n_text, seed,
                            max_tokens, int(priority), self._order,
-                           on_chunk)
+                           on_chunk,
+                           ref_codes=(None if ref_codes is None else
+                                      np.asarray(ref_codes, np.int32)),
+                           n_target=n_target)
             req.future.request = req   # exposes the timings
             if self._closed:
                 req.future.set_exception(RuntimeError("batcher stopped"))
@@ -377,26 +395,42 @@ class ContinuousBatcher:
                           state.pos]).cpu().numpy()
         return st[0].astype(bool), st[1].copy(), st[2].copy()
 
-    def _prefix_result(self, ids: np.ndarray, n_text: int,
-                       window: int) -> tuple:
+    def _cloned_inputs(self, req: _Request, cap: int) -> tuple:
+        """A cloning request's reference frames bucketed against ``cap``
+        KV rows (dense: max_seq_len; paged: the slot's page capacity) with
+        the engine's clamp (tk.cloned_ref_limit, tk.bucket_ref_frames).
+        Returns (padded (b, 16), n_ref), kept on the request."""
+        if req.cloned_prep is None:
+            limit = tk.cloned_ref_limit(cap, len(req.text_ids))
+            padded, n_ref = tk.bucket_ref_frames(limit, req.ref_codes)
+            if n_ref < len(req.ref_codes):
+                print(f"warning: reference audio truncated to {n_ref} "
+                      f"frames (prefix budget {cap})", file=sys.stderr)
+            req.cloned_prep = (padded, n_ref)
+        return req.cloned_prep
+
+    def _prefix_result(self, req: _Request, window: int) -> tuple:
         """(hidden, kv, plen) of a request's prefix: the dual-stream
-        prefix and a batch-1 talker prefill into a ``window``-row cache,
-        through the LRU. Seed and budget are not part of it."""
-        key = (ids.tobytes(), n_text, window)
+        prefix (cloned when the request has reference frames) and a
+        batch-1 talker prefill into a ``window``-row cache, through the
+        LRU. Seed, budget and n_target are not part of it."""
+        key = (req.text_ids.tobytes(), req.n_text, window)
+        if req.cloned_prep is not None:
+            padded, n_ref = req.cloned_prep
+            key += (padded.tobytes(), n_ref)
         if self.prefix_cache_size > 0:
             hit = self._prefix_lru.get(key)
             if hit is not None:
                 self._prefix_lru.move_to_end(key)
                 self.prefix_hits += 1
                 return hit
-        tp = self._tp
-        prefix, plen = tk.build_prefix(
-            tp, torch.from_numpy(ids).to(self.device), n_text)
+        prefix, plen = tk.request_prefix(self._tp, self._cpp["codec_embs"],
+                                         req.text_ids, req.n_text,
+                                         req.cloned_prep)
         pcfg = dataclasses.replace(self.cfg, talker=dataclasses.replace(
             self.cfg.talker, max_seq_len=window))
-        hidden, kv = gen.prefill_state(
-            tp, prefix[None].to(tp["codec_embedding"].dtype), plen[None],
-            pcfg)
+        hidden, kv = gen.prefill_state(self._tp, prefix[None], plen[None],
+                                       pcfg)
         out = (hidden, kv, plen[None])
         self.prefix_misses += 1
         if self.prefix_cache_size > 0:
@@ -406,12 +440,13 @@ class ContinuousBatcher:
         return out
 
     def _sub_state(self, req: _Request, window: int) -> gen.GenState:
-        """The request's batch-1 post-prefill state."""
-        hidden, kv, plen = self._prefix_result(req.text_ids, req.n_text,
-                                               window)
+        """The request's batch-1 post-prefill state; a cloning request
+        paces EOS on ``n_target``."""
+        hidden, kv, plen = self._prefix_result(req, window)
         key = smp.batch_keys([req.seed], 1)
+        n_pace = req.n_text if req.ref_codes is None else req.n_target
         return gen.assemble_state(
-            hidden, kv, plen, torch.tensor([req.n_text]), key, self.cfg,
+            hidden, kv, plen, torch.tensor([n_pace]), key, self.cfg,
             budget=self._req_budget(req))
 
     def _req_budget(self, req: _Request) -> int:
@@ -488,6 +523,10 @@ class ContinuousBatcher:
                     else:
                         S = self.cfg.talker.max_seq_len
                         p_pad = len(req.text_ids) + tk.PREFIX_EXTRA
+                        if req.ref_codes is not None:
+                            # after bucketing: even a reference cut to
+                            # nothing pads to one row
+                            p_pad += len(self._cloned_inputs(req, S)[0])
                         if p_pad > S:
                             raise ValueError(
                                 f"request prefix ({p_pad} rows incl. "
@@ -506,7 +545,9 @@ class ContinuousBatcher:
             self._slot_req[slot] = req
             req.t_admit = time.perf_counter()
             done[slot] = False
-            pos[slot] = req.n_text + tk.PREFIX_EXTRA
+            # the prefill's prefix_len, reference frames included
+            n_ref = req.cloned_prep[1] if req.cloned_prep else 0
+            pos[slot] = req.n_text + tk.PREFIX_EXTRA + n_ref
             admitted.append(slot)
         return admitted
 
@@ -517,6 +558,9 @@ class ContinuousBatcher:
         when it never can."""
         psz = self.page_size
         p_pad = len(req.text_ids) + tk.PREFIX_EXTRA
+        if req.ref_codes is not None:
+            p_pad += len(self._cloned_inputs(
+                req, self.max_pages_per_slot * psz)[0])
         if p_pad > self.max_pages_per_slot * psz:
             raise ValueError(
                 f"request prefix ({p_pad} rows incl. {tk.PREFIX_EXTRA} "
@@ -763,15 +807,3 @@ def _cast(tree: dict, dtype) -> dict:
             out[k] = v
     return out
 
-
-def _dequantize(talker: dict, dtype) -> dict:
-    """An int8 talker as dense weights in ``dtype``; the fused q|k|v and
-    gate|up products stay fused."""
-    out = dict(talker)
-    out.pop("layers_list", None)
-    out["layers"] = {k: quant.dequantize(v, dtype)
-                     if isinstance(v, quant.QTensor) else v
-                     for k, v in talker["layers"].items()}
-    if isinstance(talker.get("codec_head"), quant.QTensor):
-        out["codec_head"] = quant.dequantize(talker["codec_head"], dtype)
-    return out

@@ -2,7 +2,9 @@
 TTSConfig() (the full 0.6B geometry, random weights from a seed):
 
 - the int8 single-request slice: TTSEngine(quantize="int8") synthesizes
-  TEXTS once to warm up, then REPS more times; wall ms/token of each
+  TEXTS once to warm up, then REPS more times, each request cold (the
+  engine's prefix cache emptied before it, so that every request
+  prefills, as in a checkout without the cache); wall ms/token of each
   request (host clock, closed by a synchronise) and a digest of the
   warm-up pass's codes (equal digests: equal codes), then one request
   under torch.profiler: device busy ms/token, kernel launches per token
@@ -119,6 +121,13 @@ def _profile(fn):
     return out, prof
 
 
+def _cold(eng) -> None:
+    """Empty the engine's prefix cache, where it has one."""
+    cache = getattr(eng, "_prefix_cache", None)
+    if cache is not None:
+        cache.clear()
+
+
 def run_slice() -> dict:
     import torch
     from qwen3_tts_tpu_torch.config import TTSConfig
@@ -128,6 +137,7 @@ def run_slice() -> dict:
     walls, digest = [], hashlib.sha256()
     for rep in range(REPS + 1):
         for i, text in enumerate(TEXTS):
+            _cold(eng)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = eng.synthesize(text, seed=i)
@@ -139,6 +149,7 @@ def run_slice() -> dict:
                 digest.update(res.codes.astype("int32").tobytes())
     gauge = [host_gauge_us()]
     k1 = qmatmul.launches
+    _cold(eng)
     res, prof = _profile(lambda: eng.synthesize(TEXTS[1], seed=1))
     k1 = qmatmul.launches - k1
     gauge.append(host_gauge_us())

@@ -268,7 +268,9 @@ def test_backpressure_and_refusals(params):
     """max_queue raises OverloadedError; what is not ported yet raises
     NotImplementedError naming its ROADMAP item. Streaming (on_chunk),
     once refused here, is ported: the request is served and its segments
-    make up its audio."""
+    make up its audio. Voice cloning, once refused here too, is ported:
+    ref_codes without n_target (or the reverse) is a ValueError, as in
+    the JAX batcher."""
     b = tbatching.ContinuousBatcher(TINY, params, batch_size=1,
                                     dtype=torch.float32, device="cpu",
                                     max_queue=1)
@@ -281,8 +283,10 @@ def test_backpressure_and_refusals(params):
     (codes, audio), = _drain(b, [b.submit(ids, n, on_chunk=pieces.append)])
     assert len(codes) > 0 and len(audio) == len(codes) * 1920
     np.testing.assert_array_equal(np.concatenate(pieces), audio)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        b.submit(ids, n, ref_codes=np.zeros((4, 16)), n_target=1)
+    with pytest.raises(ValueError, match="go together"):
+        b.submit(ids, n, ref_codes=np.zeros((4, 16)))
+    with pytest.raises(ValueError, match="go together"):
+        b.submit(ids, n, n_target=1)
     for kw in (dict(pipeline_depth=2), dict(mesh=object())):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbatching.ContinuousBatcher(TINY, params, device="cpu", **kw)

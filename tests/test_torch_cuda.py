@@ -665,3 +665,27 @@ def test_streaming_engine_on_the_card(cuda):
                    - want.audio_int16.astype(np.int32))
     assert delta.max() <= 1, delta.max()
     assert res.first_audio_seconds is not None
+
+
+def test_int8_cp_engine_and_prefix_cache_on_the_card(cuda):
+    """At full geometry: the int8-cp engine's code predictor launches K2
+    and K1 and its dense talker never K3; a request that hits the prefix
+    cache after another request gives the cold request's codes."""
+    from qwen3_tts_tpu_torch.config import TTSConfig
+    from qwen3_tts_tpu_torch.engine.engine import TTSEngine
+    eng = TTSEngine(TTSConfig(max_tokens=24), quantize="int8-cp",
+                    device=cuda)
+    assert eng.quantize == "int8-cp"
+    k2, k3, k1 = (tcp.cp_decode_steps.launches,
+                  tts.talker_decode_step_fused.launches, tqm.qmatmul.launches)
+    cold = eng.synthesize("Привет, мир!", seed=3)
+    assert cold.n_tokens > 0
+    assert tcp.cp_decode_steps.launches > k2
+    assert tqm.qmatmul.launches > k1
+    assert tts.talker_decode_step_fused.launches == k3
+    eng.synthesize("Another request.", seed=1)
+    hit = eng.synthesize("Привет, мир!", seed=3)
+    assert len(eng._prefix_cache) == 2
+    np.testing.assert_array_equal(hit.codes, cold.codes)
+    np.testing.assert_array_equal(hit.audio_int16, cold.audio_int16)
+    assert tts.talker_decode_step_fused.launches == k3

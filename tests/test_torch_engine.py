@@ -10,9 +10,16 @@ geometry:
    int8 a choice; ``--streaming`` streams and prints the first-audio time.
 4. The device busy time of tools/bench_e2e counts overlapping kernels
    once; its host launch time adds the launch calls' CPU time only.
+5. ``quantize="int8-cp"``: the labels and weights of the JAX engine on
+   every pre-quantized case, and its greedy codes.
+6. The CLI's other flags parse to the JAX CLI's defaults; ``--tiny`` runs
+   on the CPU, ``--profile`` writes a trace, ``--long`` goes through
+   synthesize_long; a request error and zero tokens return 1.
 """
 
 import dataclasses
+import functools
+import os
 
 import numpy as np
 import pytest
@@ -21,9 +28,14 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from qwen3_tts_tpu import cli as jcli
 from qwen3_tts_tpu import config as C
+from qwen3_tts_tpu.engine import engine as jengine
 from qwen3_tts_tpu.io import weights as jweights
+from qwen3_tts_tpu.models import code_predictor as jcp
 from qwen3_tts_tpu.models import vocoder as jvoc
+from qwen3_tts_tpu.ops import quant as jquant
+from qwen3_tts_tpu.ops.pallas import cp_decode as jcp_kernel
 from qwen3_tts_tpu_torch import cli
 from qwen3_tts_tpu_torch import config as pconfig
 from qwen3_tts_tpu_torch.engine import engine as tengine
@@ -96,6 +108,10 @@ def prequant():
     (("code_predictor",), "int8", "int8"),
     (("talker",), None, "int8-talker"),
     (("code_predictor",), None, "int8-cp"),
+    ((), "int8-cp", "int8-cp"),
+    (("talker", "code_predictor"), "int8-cp", "int8-cp"),
+    (("talker",), "int8-cp", "int8-cp"),
+    (("code_predictor",), "int8-cp", "int8-cp"),
 ])
 def test_engine_keeps_prequantized_weights(prequant, given, quantize,
                                            label):
@@ -103,7 +119,9 @@ def test_engine_keeps_prequantized_weights(prequant, given, quantize,
     quantize="int8" or None: the engine runs, never quantizes twice
     (quantize_int8 of a QTensor raises), reports ``quantize`` as the JAX
     engine does (engine.py's pre-quantized branch), and where both halves
-    end int8 decodes the codes of quantize="int8" on the dense tree."""
+    end int8 decodes the codes of quantize="int8" on the dense tree.
+    "int8-cp" makes an int8 talker dense and quantizes a dense code
+    predictor, as the JAX engine does."""
     dense, halves, want = prequant
     params = dict(dense, **{k: halves[k] for k in given})
     eng = tengine.TTSEngine(PRE, params=params, quantize=quantize,
@@ -225,3 +243,164 @@ def test_launch_calls_split_by_launch_kind():
         {"per_token": 10.0, "host_us_a_call": 5.0})
     assert got["cudaLaunchKernelExC"] == pytest.approx(
         {"per_token": 2.5, "host_us_a_call": 4.5})
+
+
+# the pre-quantized halves of test_engine_keeps_prequantized_weights,
+# with quantize="int8-cp"
+CP_CASES = [(), ("talker", "code_predictor"), ("talker",),
+            ("code_predictor",)]
+
+
+def _jnp_tree(tree):
+    """JAX params -> numpy, each QTensor as (q, scale)."""
+    if isinstance(tree, dict):
+        return {k: _jnp_tree(v) for k, v in tree.items()
+                if k != "layers_list"}
+    if isinstance(tree, jquant.QTensor):
+        return (np.asarray(tree.q), np.asarray(tree.scale))
+    return np.asarray(tree)
+
+
+@pytest.mark.parametrize("given", CP_CASES,
+                         ids=["dense", "both", "talker", "cp"])
+def test_int8_cp_labels_and_weights_match_jax(given):
+    """The JAX engine and the port on the same (pre-quantized) weights
+    with quantize="int8-cp": the same label, a dense talker whose q/k/v
+    and gate/up weights (dequantized where they came int8) and codec head
+    equal JAX's, and the same int8 code predictor."""
+    jcfg = C.tiny_tts_config(max_tokens=4)
+    base = jweights.init_random_params(jcfg, seed=3, dtype=jnp.float32)
+    jp = dict(base)
+    if "talker" in given:
+        jp["talker"] = jquant.quantize_talker(base["talker"])
+    if "code_predictor" in given:
+        jp["code_predictor"] = jquant.quantize_code_predictor(
+            base["code_predictor"])
+    jeng = jengine.TTSEngine(jcfg, params=jp, dtype=jnp.float32,
+                             quantize="int8-cp")
+    eng = tengine.TTSEngine(pconfig.tiny_tts_config(max_tokens=4),
+                            params=tweights.from_jax_numpy(_jnp_tree(jp)),
+                            dtype=torch.float32, quantize="int8-cp",
+                            device="cpu")
+    assert eng.quantize == jeng.quantize == "int8-cp"
+    tl, jl = eng.talker.weights()["layers"], jeng.params["talker"]["layers"]
+    assert "qkv_proj" not in tl
+    for name in ("q_proj", "k_proj", "v_proj", "o_proj", "gate_proj",
+                 "up_proj", "down_proj"):
+        assert tl[name].dtype == torch.float32
+        np.testing.assert_array_equal(tl[name].numpy(),
+                                      np.asarray(jl[name]), err_msg=name)
+    np.testing.assert_array_equal(
+        eng.talker.weights()["codec_head"].numpy(),
+        np.asarray(jeng.params["talker"]["codec_head"]))
+    # a code predictor that each engine quantizes at init: XLA may divide
+    # amax by 127 as a product with its reciprocal, so a scale may differ
+    # by 1 ulp, and a value on a rounding tie by one step of q
+    pre = "code_predictor" in given
+    tc, jc = eng.code_predictor.weights(), jeng.params["code_predictor"]
+    for name, t, j in [(n, tc["layers"][n], jc["layers"][n])
+                       for n in ("q_proj", "down_proj")] + [
+                           ("lm_heads", tc["lm_heads"], jc["lm_heads"])]:
+        dq = np.abs(t.q.numpy().astype(np.int32)
+                    - np.asarray(j.q).astype(np.int32))
+        assert dq.max() <= (0 if pre else 1), name
+        assert (dq > 0).mean() <= (0 if pre else 1e-5), name
+        np.testing.assert_allclose(t.scale.numpy(), np.asarray(j.scale),
+                                   rtol=0 if pre else 2.4e-7, atol=0,
+                                   err_msg=name)
+
+
+def test_int8_cp_greedy_codes_match_jax(monkeypatch):
+    """f32, greedy, one int8 code predictor (quantized once, by the JAX
+    package) for both int8-cp engines: equal codes over 8 tokens, the
+    port's code predictor on K2's and K1's plain versions, its talker
+    dense; the JAX code predictor forced through its TPU kernel in
+    interpret mode, as tests/test_torch_slice.py's int8 step is. The
+    weight seed is 0: at that test's INT8_SEED (2) a greedy choice at
+    token 6 is a near tie that XLA's default excess bf16 precision flips
+    on the CPU (with --xla_allow_excess_precision=false, seeds 0 and 2
+    both give equal codes)."""
+    monkeypatch.setattr(jcp, "_fused_kernel_ok", lambda *a, **k: True)
+    monkeypatch.setattr(
+        jcp_kernel, "cp_decode_steps",
+        functools.partial(jcp_kernel.cp_decode_steps, interpret=True))
+    greedy = C.SamplingConfig(temperature=0.0, repetition_penalty=1.0,
+                              cp_temperature=0.0)
+    jcfg = dataclasses.replace(C.tiny_tts_config(max_tokens=8),
+                               sampling=greedy)
+    pcfg = dataclasses.replace(
+        pconfig.tiny_tts_config(max_tokens=8),
+        sampling=pconfig.SamplingConfig(**dataclasses.asdict(greedy)))
+    jp = dict(jweights.init_random_params(jcfg, seed=0, dtype=jnp.float32))
+    jp["code_predictor"] = jquant.quantize_code_predictor(
+        jp["code_predictor"])
+    jeng = jengine.TTSEngine(jcfg, params=jp, dtype=jnp.float32,
+                             quantize="int8-cp")
+    want = jeng.synthesize("Привет, мир!", seed=0)
+    eng = tengine.TTSEngine(pcfg, params=tweights.from_jax_numpy(
+        _jnp_tree(jp)), dtype=torch.float32, quantize="int8-cp",
+                            device="cpu")
+    assert eng.quantize == jeng.quantize == "int8-cp"
+    got = eng.synthesize("Привет, мир!", seed=0)
+    assert got.n_tokens == want.n_tokens == 8
+    np.testing.assert_array_equal(got.codes, np.asarray(want.codes))
+
+
+def test_cli_flags_parse_to_the_jax_defaults():
+    mine = vars(cli.parser().parse_args([]))
+    theirs = vars(jcli.build_parser().parse_args([]))
+    for flag in ("text", "text_flag", "output", "language", "dtype", "seed",
+                 "max_tokens", "temperature", "top_k", "tiny", "streaming",
+                 "long", "prompt_dir", "profile"):
+        assert mine[flag] == theirs[flag], flag
+    assert mine["quantize"] == "none" and theirs["quantize"] is None
+    args = cli.parser().parse_args(
+        ["--text", "t", "--dtype", "float32", "--temperature", "0.5",
+         "--top_k", "7", "--tiny", "--long", "--prompt_dir", "p",
+         "--profile", "d", "--quantize", "int8-cp"])
+    assert (args.text_flag, args.dtype, args.temperature, args.top_k,
+            args.tiny, args.long, args.prompt_dir, args.profile,
+            args.quantize) == ("t", "float32", 0.5, 7, True, True, "p",
+                               "d", "int8-cp")
+    with pytest.raises(SystemExit):
+        cli.parser().parse_args(["--dtype", "float16"])
+
+
+def test_cli_tiny_profile_and_long(tmp_path, monkeypatch, capsys):
+    """--tiny on the CPU writes the WAV and, under --profile, a trace;
+    --long goes through synthesize_long (4 pieces here) with the cap
+    --max_tokens sets; --streaming with it prints JAX's note."""
+    out, prof = tmp_path / "x.wav", tmp_path / "prof"
+    assert cli.main(["ab", "--tiny", "--device", "cpu", "--output",
+                     str(out), "--profile", str(prof)]) == 0
+    assert out.stat().st_size > 44
+    assert any(f.endswith(".json") for f in os.listdir(prof))
+    calls = []
+    real = tengine.TTSEngine.synthesize_long
+
+    def spy(self, text, **kw):
+        calls.append((self.cfg.max_tokens, kw))
+        return real(self, text, **kw)
+    monkeypatch.setattr(tengine.TTSEngine, "synthesize_long", spy)
+    out2 = tmp_path / "y.wav"
+    assert cli.main(["ab cd ef gh", "--tiny", "--device", "cpu", "--long",
+                     "--streaming", "--max_tokens", "8", "--temperature",
+                     "0", "--output", str(out2)]) == 0
+    assert calls and calls[0][0] == 8 and calls[0][1]["prompt_dir"] is None
+    assert out2.stat().st_size > 44
+    assert "note: --long" in capsys.readouterr().out
+
+
+def test_cli_errors_return_one(tmp_path, monkeypatch, capsys):
+    assert cli.main(["a", "--tiny", "--device", "cpu", "--prompt_dir",
+                     str(tmp_path / "missing")]) == 1
+    assert "error: invalid prompt_dir" in capsys.readouterr().err
+
+    def run_steps(tp, cpp, state, cfg, steps):
+        return dataclasses.replace(state, done=torch.ones_like(state.done))
+    monkeypatch.setattr(tengine.gen, "run_steps", run_steps)
+    out = tmp_path / "none.wav"
+    assert cli.main(["a", "--tiny", "--device", "cpu", "--output",
+                     str(out)]) == 1
+    assert "No tokens generated!" in capsys.readouterr().out
+    assert not out.exists()
