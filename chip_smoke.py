@@ -75,7 +75,22 @@
    equal codes); synthesize_long on a six-sentence paragraph (5 pieces,
    a group of 4 through synthesize_batch on K3; the result its pieces in
    order; with on_chunk equal codes, its chunks its audio, within +-1
-   LSB; first-audio seconds and RTF printed).
+   LSB; first-audio seconds and RTF printed). Then checkpoints
+   (phase_checkpoint, before any profile, at full geometry in a temporary
+   directory): the engine's seed-0 weights and a seeded encoder written
+   as an HF checkpoint (model.safetensors in bf16, speech_tokenizer/ with
+   decoder.* and encoder.* in f32; bytes and seconds printed);
+   detect_tts_config equal to TTSConfig()'s; TTSEngine(model_dir,
+   quantize="int8") gives the engine's codes and int16 audio bit for bit
+   on the three texts, launching K1 (both routes), K2 and K3 (load
+   seconds split into read, map and to-device; the tokenizer it got
+   printed); convert_weights --quantize int8 to a params.npz, whose
+   engine reports "int8" and gives the same codes; encode_reference_audio
+   on 5 s of the port's vocoder output written at 16 kHz, on the card and
+   with --device cpu: latents within 1e-4 of their scale, codes equal but
+   for near ties (counted), the encoder's ms; the loaded engine's cloned
+   request from that prompt dir (the tile at the cloned R) equal to the
+   engine's; the CLI with --model_dir --quantize int8 writes a WAV.
 4. Slice: TTSEngine(TTSConfig(), quantize="int8") synthesizes three short
    texts; each request must give codes in range, n_tokens * 1920 finite
    samples, and launch K1 (on both routes), K2 and K3; K1 at most 23
@@ -1834,6 +1849,429 @@ def phase_microbench_merged(card: str, counters: dict) -> dict:
                                      "talker_step_mergedvec")}
 
 
+# ---------------------------------------------------------------------------
+# Checkpoints: the inverse of io/weights.py's key mapping and a
+# safetensors writer (helpers of phase_checkpoint and of the CPU tests
+# tests/test_torch_weights_io.py and test_torch_checkpoint.py)
+# ---------------------------------------------------------------------------
+
+# the reference audio of phase_checkpoint: 5 s of the port's vocoder
+# output for seeded codes, written at 16 kHz so that resample_linear runs
+REF_SECONDS, REF_RATE = 5, 16000
+_ST_NAMES = {"torch.float64": "F64", "torch.float32": "F32",
+             "torch.float16": "F16", "torch.bfloat16": "BF16",
+             "torch.int64": "I64", "torch.int32": "I32",
+             "torch.int16": "I16", "torch.int8": "I8", "torch.uint8": "U8",
+             "torch.bool": "BOOL"}
+
+
+def _hf_layers(lay: dict, prefix: str) -> dict:
+    """A stacked layer dict as HF's per-layer tensors ((out, in))."""
+    out = {}
+    for i in range(lay["input_ln"].shape[0]):
+        p = f"{prefix}.{i}."
+        out[p + "input_layernorm.weight"] = lay["input_ln"][i]
+        out[p + "post_attention_layernorm.weight"] = lay["post_ln"][i]
+        out[p + "self_attn.q_norm.weight"] = lay["q_norm"][i]
+        out[p + "self_attn.k_norm.weight"] = lay["k_norm"][i]
+        for n in ("q_proj", "k_proj", "v_proj", "o_proj"):
+            out[p + f"self_attn.{n}.weight"] = lay[n][i].T
+        for n in ("gate_proj", "up_proj", "down_proj"):
+            out[p + f"mlp.{n}.weight"] = lay[n][i].T
+    return out
+
+
+def hf_state_dict(params: dict) -> dict:
+    """The dense talker and code predictor of a port param tree under the
+    HF Qwen3-TTS checkpoint's names and (out, in) layouts: the inverse of
+    io/weights.load_talker_from_hf and load_code_predictor_from_hf."""
+    t, c = params["talker"], params["code_predictor"]
+    sd = _hf_layers(t["layers"], "talker.model.layers")
+    sd.update({
+        "talker.model.norm.weight": t["final_norm"],
+        "talker.model.text_embedding.weight": t["text_embedding"],
+        "talker.text_projection.linear_fc1.weight": t["proj_fc1_w"].T,
+        "talker.text_projection.linear_fc1.bias": t["proj_fc1_b"],
+        "talker.text_projection.linear_fc2.weight": t["proj_fc2_w"].T,
+        "talker.text_projection.linear_fc2.bias": t["proj_fc2_b"],
+        "talker.model.codec_embedding.weight": t["codec_embedding"],
+        "talker.codec_head.weight": t["codec_head"].T,
+    })
+    pre = "talker.code_predictor"
+    sd.update(_hf_layers(c["layers"], f"{pre}.model.layers"))
+    sd[f"{pre}.model.norm.weight"] = c["final_norm"]
+    sd[f"{pre}.small_to_mtp_projection.weight"] = c["mtp_proj_w"].T
+    sd[f"{pre}.small_to_mtp_projection.bias"] = c["mtp_proj_b"]
+    for g in range(c["codec_embs"].shape[0]):
+        sd[f"{pre}.model.codec_embedding.{g}.weight"] = c["codec_embs"][g]
+        sd[f"{pre}.lm_head.{g}.weight"] = c["lm_heads"][g].T
+    return {k: v.contiguous() for k, v in sd.items()}
+
+
+def _conv_sd(w):          # WIO (K, Cin/g, Cout) -> torch (Cout, Cin/g, K)
+    return w.permute(2, 1, 0)
+
+
+def _window_sd(p: dict, prefix: str) -> dict:
+    lay, out = p["layers"], {prefix + ".norm.weight": p["norm"]}
+    names = (("input_ln", "input_layernorm.weight", False),
+             ("post_ln", "post_attention_layernorm.weight", False),
+             ("q_proj", "self_attn.q_proj.weight", True),
+             ("k_proj", "self_attn.k_proj.weight", True),
+             ("v_proj", "self_attn.v_proj.weight", True),
+             ("o_proj", "self_attn.o_proj.weight", True),
+             ("gate_proj", "mlp.gate_proj.weight", True),
+             ("up_proj", "mlp.up_proj.weight", True),
+             ("down_proj", "mlp.down_proj.weight", True),
+             ("attn_scale", "self_attn_layer_scale.scale", False),
+             ("mlp_scale", "mlp_layer_scale.scale", False))
+    for i in range(lay["input_ln"].shape[0]):
+        for key, name, tr in names:
+            w = lay[key][i]
+            out[f"{prefix}.layers.{i}.{name}"] = w.T if tr else w
+    return out
+
+
+def _convnext_sd(p: dict, u: str) -> dict:
+    return {u + "dwconv.conv.weight": _conv_sd(p["cn_dw_w"]),
+            u + "dwconv.conv.bias": p["cn_dw_b"],
+            u + "norm.weight": p["cn_ln_w"], u + "norm.bias": p["cn_ln_b"],
+            u + "pwconv1.weight": p["cn_pw1_w"].T,
+            u + "pwconv1.bias": p["cn_pw1_b"],
+            u + "pwconv2.weight": p["cn_pw2_w"].T,
+            u + "pwconv2.bias": p["cn_pw2_b"], u + "gamma": p["cn_gamma"]}
+
+
+def _res_sd(p: dict, r: str) -> dict:
+    return {r + "act1.alpha": p["alpha1"], r + "act1.beta": p["beta1"],
+            r + "conv1.conv.weight": _conv_sd(p["conv1_w"]),
+            r + "conv1.conv.bias": p["conv1_b"],
+            r + "act2.alpha": p["alpha2"], r + "act2.beta": p["beta2"],
+            r + "conv2.conv.weight": _conv_sd(p["conv2_w"]),
+            r + "conv2.conv.bias": p["conv2_b"]}
+
+
+def vocoder_state_dict(vp: dict) -> dict:
+    """The vocoder tree under the speech tokenizer decoder's torch names
+    (``decoder.`` stripped): the inverse of io/weights.
+    load_vocoder_from_state_dict."""
+    sd = {"code_embedding.weight": vp["code_embedding"],
+          **_window_sd(vp["pre"], "pre_transformer")}
+    for i, up in sorted(vp["upsample"].items()):
+        u = f"upsample.{i}."
+        sd[u + "0.conv.weight"] = up["up_w"].flip(0).permute(1, 2, 0)
+        sd[u + "0.conv.bias"] = up["up_b"]
+        sd.update(_convnext_sd(up, u + "1."))
+    sd["decoder.0.conv.weight"] = _conv_sd(vp["dec_in_w"])
+    sd["decoder.0.conv.bias"] = vp["dec_in_b"]
+    n = len(vp["blocks"])
+    for i in range(n):
+        blk, d = vp["blocks"][str(i)], f"decoder.{i + 1}.block."
+        sd[d + "0.alpha"], sd[d + "0.beta"] = blk["alpha"], blk["beta"]
+        sd[d + "1.conv.weight"] = blk["up_w"].flip(0).permute(1, 2, 0)
+        sd[d + "1.conv.bias"] = blk["up_b"]
+        for d_i in range(3):
+            sd.update(_res_sd(blk["res"][str(d_i)], d + f"{d_i + 2}."))
+    sd[f"decoder.{n + 1}.alpha"] = vp["out_alpha"]
+    sd[f"decoder.{n + 1}.beta"] = vp["out_beta"]
+    sd[f"decoder.{n + 2}.conv.weight"] = _conv_sd(vp["out_w"])
+    sd[f"decoder.{n + 2}.conv.bias"] = vp["out_b"]
+    return {k: v.contiguous() for k, v in sd.items()}
+
+
+def encoder_state_dict(ep: dict) -> dict:
+    """The encoder tree under its mirror names (``encoder.`` stripped):
+    the inverse of models/encoder.load_encoder_from_state_dict."""
+    sd = {"encoder.0.conv.weight": _conv_sd(ep["enc_in_w"]),
+          "encoder.0.conv.bias": ep["enc_in_b"]}
+    n = len(ep["blocks"])
+    for i in range(n):
+        blk, d = ep["blocks"][str(i)], f"encoder.{i + 1}.block."
+        for d_i in range(3):
+            sd.update(_res_sd(blk["res"][str(d_i)], d + f"{d_i}."))
+        sd[d + "3.alpha"], sd[d + "3.beta"] = blk["alpha"], blk["beta"]
+        sd[d + "4.conv.weight"] = _conv_sd(blk["down_w"])
+        sd[d + "4.conv.bias"] = blk["down_b"]
+    sd[f"encoder.{n + 1}.conv.weight"] = _conv_sd(ep["enc_out_w"])
+    sd[f"encoder.{n + 1}.conv.bias"] = ep["enc_out_b"]
+    for i, st in sorted(ep["downsample"].items()):
+        u = f"downsample.{i}."
+        sd.update(_convnext_sd(st, u + "0."))
+        sd[u + "1.conv.weight"] = _conv_sd(st["down_w"])
+        sd[u + "1.conv.bias"] = st["down_b"]
+    sd.update(_window_sd(ep["post"], "post_transformer"))
+    return {k: v.contiguous() for k, v in sd.items()}
+
+
+def write_safetensors(path: str, tensors: dict) -> int:
+    """A .safetensors file of torch tensors (any device), in name order;
+    returns its bytes."""
+    import struct
+    import torch
+    header, off = {}, 0
+    for k in sorted(tensors):
+        t = tensors[k]
+        n = t.numel() * t.element_size()
+        header[k] = {"dtype": _ST_NAMES[str(t.dtype)],
+                     "shape": list(t.shape), "data_offsets": [off, off + n]}
+        off += n
+    hb = json.dumps(header).encode()
+    hb += b" " * (-len(hb) % 8)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(hb)))
+        f.write(hb)
+        for k in sorted(tensors):
+            t = tensors[k].detach().contiguous().cpu().reshape(-1)
+            f.write(memoryview(t.view(torch.uint8).numpy()))
+    return os.path.getsize(path)
+
+
+def write_checkpoint(d: str, params: dict, enc_params: dict) -> dict:
+    """An HF-named checkpoint directory from a dense port param tree and
+    an encoder tree: ``model.safetensors`` (talker and code predictor, in
+    their dtype) and ``speech_tokenizer/model.safetensors`` (``decoder.*``
+    and ``encoder.*``, f32). Returns each file's bytes."""
+    os.makedirs(os.path.join(d, "speech_tokenizer"), exist_ok=True)
+    st = {"decoder." + k: v
+          for k, v in vocoder_state_dict(params["vocoder"]).items()}
+    st.update({"encoder." + k: v
+               for k, v in encoder_state_dict(enc_params).items()})
+    return {
+        "model.safetensors": write_safetensors(
+            os.path.join(d, "model.safetensors"), hf_state_dict(params)),
+        "speech_tokenizer/model.safetensors": write_safetensors(
+            os.path.join(d, "speech_tokenizer", "model.safetensors"), st),
+    }
+
+
+def _rvq_flips(got, want, z, codebooks) -> int:
+    """Frames whose codes differ between two RVQ runs (``got`` against
+    ``want``, (T, 16)) may differ only from a near tie: at the first stage
+    where they part, the squared distances of the two rows from ``want``'s
+    residual (float64, from latent z (T, H) and codebooks (16, V, H)) lie
+    within 1e-5 relative. Returns the count of such frames; fails on any
+    other difference."""
+    import numpy as np
+    check(got.shape == want.shape, f"RVQ codes {got.shape} {want.shape}")
+    z = np.asarray(z, np.float64)
+    cb = np.asarray(codebooks, np.float64)
+    flips = 0
+    for t in np.nonzero((got != want).any(axis=1))[0]:
+        q = int(np.nonzero(got[t] != want[t])[0][0])
+        r = z[t] * cb.shape[0] - sum(cb[s, want[t, s]] for s in range(q))
+        da = float(((r - cb[q, want[t, q]]) ** 2).sum())
+        db = float(((r - cb[q, got[t, q]]) ** 2).sum())
+        check(abs(da - db) <= 1e-5 * max(da, db),
+              f"RVQ frame {t} stage {q}: codes {want[t, q]} / {got[t, q]} "
+              f"at distances {da} / {db}, no near tie")
+        flips += 1
+    return flips
+
+
+def phase_checkpoint(eng, params, card: str, counters: dict) -> dict:
+    """Checkpoint loading and the reference encoder at full geometry,
+    before any profiler session:
+
+    1. eng's seed-0 weights (``params``, before quantization) and a seeded
+       encoder written as an HF checkpoint directory;
+    2. detect_tts_config equal to TTSConfig()'s talker and code
+       predictor; TTSEngine(model_dir=d, quantize="int8") gives eng's
+       codes and int16 audio bit for bit on TEXTS, launching K1 (both
+       routes), K2 and K3;
+    3. convert_weights --quantize int8 to a params.npz, whose engine
+       reports "int8" and gives eng's codes;
+    4. encode_reference_audio on 5 s of audio at 16 kHz, on the card and
+       with --device cpu: latents within 1e-4 of their scale, codes equal
+       but for counted near ties; the encoder's ms; the loaded engine's
+       cloned request (the tile at the cloned R) equal to eng's;
+    5. the CLI with --model_dir d --quantize int8 writes a WAV.
+
+    Returns the kernels' launches on the loaded engine's requests."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch import cli
+    from qwen3_tts_tpu_torch.config import SAMPLE_RATE, TTSConfig
+    from qwen3_tts_tpu_torch.engine.engine import TTSEngine
+    from qwen3_tts_tpu_torch.io import wav as wav_io
+    from qwen3_tts_tpu_torch.io import weights as weights_io
+    from qwen3_tts_tpu_torch.models import encoder as enc
+    from qwen3_tts_tpu_torch.models import talker as tk
+    from qwen3_tts_tpu_torch.models import vocoder as voc
+    from qwen3_tts_tpu_torch.tools import convert_weights
+    from qwen3_tts_tpu_torch.tools import encode_reference_audio
+    t_phase = time.perf_counter()
+    cfg = TTSConfig()
+    L = cfg.talker.num_layers
+    root = tempfile.mkdtemp(prefix="q3ckpt_")
+    try:
+        # 1. the checkpoint
+        d = os.path.join(root, "hf")
+        enc_params = enc.init_encoder_params(cfg.encoder, seed=0,
+                                             device="cuda")
+        t0 = time.perf_counter()
+        sizes = write_checkpoint(d, params, enc_params)
+        print(f"checkpoint written: {sizes} bytes in "
+              f"{time.perf_counter() - t0:.2f} s [{card}]")
+
+        # 2. load it: the int8 engine gives eng's codes and audio
+        det = weights_io.detect_tts_config(d)
+        check(det.talker == cfg.talker
+              and det.code_predictor == cfg.code_predictor,
+              f"detect_tts_config: {det}")
+        want = []
+        for i, text in enumerate(TEXTS):
+            eng._prefix_cache.clear()
+            want.append(eng.synthesize(text, seed=i))
+        t0 = time.perf_counter()
+        loaded = TTSEngine(model_dir=d, quantize="int8", device="cuda")
+        torch.cuda.synchronize()
+        t_st = time.perf_counter() - t0
+        check(loaded.cfg == cfg, f"the loaded engine's config {loaded.cfg}")
+        print(f"TTSEngine(model_dir, quantize='int8'): {t_st:.2f} s, of "
+              f"which { {k: round(v, 3) for k, v in loaded.load_seconds.items()} } "
+              f"s; tokenizer {type(loaded.tokenizer).__name__} [{card}]")
+        for fn in counters.values():
+            fn.launches = 0
+        for i, text in enumerate(TEXTS):
+            res = loaded.synthesize(text, seed=i)
+            _check_result(res, f"loaded request {i}")
+            check(np.array_equal(res.codes, want[i].codes)
+                  and np.array_equal(res.audio_int16, want[i].audio_int16),
+                  f"loaded request {i}: other codes or audio than eng's")
+        torch.cuda.synchronize()
+        launches = _launches(counters)
+        for k in ("qmatmul", "qmatmul_qsplit", "qmatmul_tile", "talker_step",
+                  "cp_decode"):
+            check(launches[k] > 0, f"loaded engine: {k} not launched")
+        print(f"loaded engine: {len(TEXTS)} requests ("
+              f"{[r.n_tokens for r in want]} tokens) equal to eng's in "
+              f"codes and int16 audio; launches "
+              f"{ {k: v for k, v in launches.items() if v} } [{card}]")
+
+        # 3. a pre-quantized params.npz
+        d2 = os.path.join(root, "npz")
+        os.makedirs(d2)
+        npz = os.path.join(d2, "params.npz")
+        t0 = time.perf_counter()
+        rc = convert_weights.main(["--model_dir", d, "--quantize", "int8",
+                                   "--output", npz])
+        t_conv = time.perf_counter() - t0
+        check(rc == 0, f"convert_weights: exit {rc}")
+        t0 = time.perf_counter()
+        pre = TTSEngine(model_dir=d2, device="cuda")
+        torch.cuda.synchronize()
+        t_npz = time.perf_counter() - t0
+        check(pre.quantize == "int8" and pre.cfg == cfg,
+              f"params.npz engine: quantize {pre.quantize!r}")
+        for i, text in enumerate(TEXTS):
+            res = pre.synthesize(text, seed=i)
+            check(np.array_equal(res.codes, want[i].codes),
+                  f"params.npz request {i}: other codes than eng's")
+        print(f"convert_weights --quantize int8: {os.path.getsize(npz)} "
+              f"bytes in {t_conv:.2f} s; TTSEngine(model_dir=params.npz "
+              f"dir): {t_npz:.2f} s ("
+              f"{ {k: round(v, 3) for k, v in pre.load_seconds.items()} }) "
+              f"against {t_st:.2f} s from safetensors; quantize "
+              f"{pre.quantize!r}, codes equal to eng's [{card}]")
+        del pre
+
+        # 4. encode a reference, on the card and on the host
+        frames = np.random.default_rng(11).integers(
+            0, 2048, (-(-REF_SECONDS * SAMPLE_RATE // 1920), 16))
+        audio = eng.vocode(frames)[:REF_SECONDS * SAMPLE_RATE]
+        ref16 = enc.resample_linear(audio.astype(np.float32) / 32768.0,
+                                    SAMPLE_RATE, REF_RATE)
+        ref_wav = os.path.join(root, "ref.wav")
+        wav_io.write_wav(ref_wav, voc.to_int16(ref16), REF_RATE)
+        prompts, secs = {}, {}
+        for dev in ("cuda", "cpu"):
+            prompts[dev] = os.path.join(root, f"prompt_{dev}")
+            t0 = time.perf_counter()
+            rc = encode_reference_audio.main(
+                ["--audio", ref_wav, "--model_dir", d, "--output_dir",
+                 prompts[dev], "--ref_text", CLONE_TEXT, "--device", dev])
+            secs[dev] = time.perf_counter() - t0
+            check(rc == 0, f"encode_reference_audio --device {dev}: {rc}")
+        codes = {dev: np.load(os.path.join(p, "ref_codec_tokens.npy"))
+                 for dev, p in prompts.items()}
+        check(codes["cuda"].dtype == np.int64
+              and codes["cuda"].shape == (len(frames), 16),
+              f"prompt tokens {codes['cuda'].dtype} {codes['cuda'].shape}")
+        wav24 = enc.pad_to_tokens(enc.resample_linear(
+            *wav_io.read_wav(ref_wav), SAMPLE_RATE))
+        st = weights_io.load_speech_tokenizer(
+            os.path.join(d, "speech_tokenizer"), cfg)
+        x = torch.from_numpy(wav24)[None]
+        with torch.inference_mode():
+            z_cpu = enc.encode_features(st["encoder"], x, cfg.encoder)[0]
+            st = weights_io.to_device(st, "cuda")
+            xc = x.cuda()
+            z_card = enc.encode_features(st["encoder"], xc,
+                                         cfg.encoder)[0].cpu()
+        scale = float(z_cpu.abs().max())
+        err = float((z_card - z_cpu).abs().max())
+        check(err <= 1e-4 * scale, f"encoder latents: card against CPU "
+              f"max|diff| {err} of scale {scale}")
+        cb = enc.decoder_codebooks(st["vocoder"], cfg.vocoder)
+        flips = _rvq_flips(codes["cuda"], codes["cpu"], z_cpu.numpy(),
+                           cb.cpu().numpy())
+        with torch.inference_mode():
+            ms = time_ms(lambda: enc.encode(st["encoder"], cb, xc,
+                                            cfg.encoder), iters=5, reps=3)
+            ms_feat = time_ms(lambda: enc.encode_features(
+                st["encoder"], xc, cfg.encoder), iters=5, reps=3)
+        print(f"encoder: {REF_SECONDS} s at {REF_RATE} Hz -> "
+              f"{len(frames)} tokens; latents card against CPU max|diff| "
+              f"{err:.3e} (scale {scale:.3e}); codes card against CPU: "
+              f"{flips} near-tie flips; encode {ms:.3f} ms (features "
+              f"{ms_feat:.3f}, RVQ {ms - ms_feat:.3f}); the tool "
+              f"{secs['cuda']:.2f} s on the card, {secs['cpu']:.2f} s on "
+              f"the host's CPU [{card}]")
+        del st
+
+        # the loaded engine clones from the encoded prompt dir
+        ref_codes, ref_text = loaded._load_prompt(prompts["cuda"])
+        ids, _, _ = loaded._encode_cloned(TEXTS[0], ref_text)
+        padded, _ = tk.bucket_ref_frames(
+            tk.cloned_ref_limit(cfg.talker.max_seq_len, len(ids)), ref_codes)
+        R = len(ids) + tk.PREFIX_EXTRA + len(padded)
+        loaded._prefix_cache.clear()
+        before = _launches(counters)
+        res = loaded.synthesize(TEXTS[0], seed=0, prompt_dir=prompts["cuda"])
+        torch.cuda.synchronize()
+        grew = _grew(before, counters)
+        for k, v in grew.items():
+            launches[k] += v
+        _check_result(res, "cloned request (loaded)")
+        check(grew["qmatmul_tile"] == 4 * L,
+              f"cloned request: the tile launched {grew['qmatmul_tile']}")
+        eng._prefix_cache.clear()
+        same = eng.synthesize(TEXTS[0], seed=0, prompt_dir=prompts["cuda"])
+        check(np.array_equal(res.codes, same.codes),
+              "cloned request: the loaded engine's codes are not eng's")
+        print(f"cloned from the encoded prompt dir: R={R} rows, the tile "
+              f"{grew['qmatmul_tile']} launches, n_tokens {res.n_tokens}, "
+              f"codes equal to eng's [{card}]")
+        del loaded
+
+        # 5. the command line
+        out = os.path.join(root, "cli.wav")
+        t0 = time.perf_counter()
+        rc = cli.main([TEXTS[1], "--model_dir", d, "--quantize", "int8",
+                       "--output", out])
+        check(rc == 0 and os.path.getsize(out) > 44,
+              f"cli --model_dir: exit {rc}")
+        print(f"cli --model_dir --quantize int8: exit 0, WAV "
+              f"{os.path.getsize(out)} bytes, "
+              f"{time.perf_counter() - t0:.1f} s with the load [{card}]")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"checkpoint phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1905,6 +2343,7 @@ def main() -> int:
     phase_stream_batcher(params, card, counters)
     phase_chunked_vocoder(eng, card)
     phase_engine_surface(eng, params, card, counters)
+    phase_checkpoint(eng, params, card, counters)
     by_name = {k["name"]: k for k in kernels}
     phase_kernel_profiles(eng, card, by_name["talker_step"],
                           by_name["cp_decode"])

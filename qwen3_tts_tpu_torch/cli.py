@@ -1,12 +1,14 @@
 """Command line: synthesize one text to a WAV file with the PyTorch port.
 
     python -m qwen3_tts_tpu_torch.cli "text" --output out.wav --seed 0 \
-        [--quantize none|int8|int8-cp] [--streaming] [--long] \
-        [--prompt_dir DIR] [--profile DIR] [--tiny] [--device cuda]
+        [--model_dir DIR] [--quantize none|int8|int8-cp] [--streaming] \
+        [--long] [--prompt_dir DIR] [--profile DIR] [--tiny] [--device cuda]
 
-The flags of the JAX package's CLI (qwen3_tts_tpu/cli.py), with
-``--device`` for its ``--platform``; random weights (no checkpoint
-loading yet), bf16 unless ``--dtype float32``. ``--streaming``
+The flags of the JAX package's CLI (qwen3_tts_tpu/cli.py) but ``--tp``,
+with ``--device`` for its ``--platform``; bf16 unless ``--dtype
+float32``. ``--model_dir`` loads a checkpoint (a ``params.npz`` of either
+package, or an HF directory with ``model.safetensors``) and its geometry;
+without it the weights are random from ``--seed``. ``--streaming``
 synthesizes in streaming mode (the engine's head chunks and the
 incremental vocoder stream); ``--long`` splits a paragraph into sentence
 pieces (TTSEngine.synthesize_long); ``--prompt_dir`` clones the voice of
@@ -61,6 +63,10 @@ def parser() -> argparse.ArgumentParser:
                          "and ref_text.txt)")
     ap.add_argument("--profile", default=None, metavar="DIR",
                     help="write a torch.profiler trace of the call to DIR")
+    ap.add_argument("--model_dir", default=None,
+                    help="checkpoint dir (params.npz, or model.safetensors "
+                         "and speech_tokenizer/); random weights if "
+                         "omitted")
     ap.add_argument("--device", default="cuda")
     return ap
 
@@ -69,13 +75,36 @@ def main(argv=None) -> int:
     args = parser().parse_args(argv)
     text = args.text or args.text_flag or DEFAULT_TEXT
 
+    import os
+
     import torch
 
     from qwen3_tts_tpu_torch.config import TTSConfig, tiny_tts_config
     from qwen3_tts_tpu_torch.engine import engine as tengine
+    from qwen3_tts_tpu_torch.io import weights as weights_io
     from qwen3_tts_tpu_torch.utils.profiling import device_trace
 
-    cfg = tiny_tts_config(max_tokens=32) if args.tiny else TTSConfig()
+    dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
+    preloaded = None
+    if args.tiny:
+        cfg = tiny_tts_config(max_tokens=32)
+    elif args.model_dir:
+        # the geometry from the checkpoint, in load_params' order; a
+        # params.npz is loaded here once and handed to the engine
+        npz = os.path.join(args.model_dir, "params.npz")
+        if os.path.exists(npz):
+            cfg = weights_io.read_npz_config(npz)
+            preloaded = weights_io.load_params(args.model_dir, TTSConfig(),
+                                               dtype, args.seed, args.device)
+            if cfg is None:
+                cfg = weights_io.config_from_params(preloaded)
+        elif os.path.exists(os.path.join(args.model_dir,
+                                         "model.safetensors")):
+            cfg = weights_io.detect_tts_config(args.model_dir)
+        else:
+            cfg = TTSConfig()
+    else:
+        cfg = TTSConfig()
     if args.max_tokens is not None:
         cfg = dataclasses.replace(cfg, max_tokens=args.max_tokens)
     sampling = cfg.sampling
@@ -88,8 +117,8 @@ def main(argv=None) -> int:
     print(f"Text: '{text}'")
     print(f"Language: {args.language}")
     eng = tengine.TTSEngine(
-        cfg=cfg, seed=args.seed, device=args.device,
-        dtype=torch.bfloat16 if args.dtype == "bfloat16" else torch.float32,
+        cfg=cfg, model_dir=args.model_dir, seed=args.seed,
+        device=args.device, dtype=dtype, params=preloaded,
         quantize=None if args.quantize == "none" else args.quantize)
     try:
         with device_trace(args.profile, eng.device):

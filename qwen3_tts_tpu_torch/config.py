@@ -1,13 +1,14 @@
 """Geometry and sampling configuration of the port: the part of
-qwen3_tts_tpu/config.py that synthesis and the batcher read, with the
-same fields, defaults and constants (tests/test_torch_modules.py holds
-the two equal). The port keeps its own copy so that it imports nothing
-of the JAX package.
+qwen3_tts_tpu/config.py that synthesis, the batcher and the encoder
+read, with the same fields, defaults and constants
+(tests/test_torch_modules.py holds the two equal; a params.npz embeds
+``dataclasses.asdict(TTSConfig)`` with the same keys in both). The
+port keeps its own copy so that it imports nothing of the JAX package.
 
 Qwen3-TTS-12Hz-0.6B-Base: a 28-layer Qwen3 talker, a 5-layer code
 predictor with 15 per-group codec embeddings and lm_heads, and the FP32
 decoder of the speech tokenizer v2 (16 codebooks, 1920x upsampling to
-24 kHz)."""
+24 kHz) with its encoder (1920x downsampling, voice-cloning prep)."""
 
 from __future__ import annotations
 
@@ -97,6 +98,44 @@ class VocoderConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """Speech-tokenizer encoder (voice-cloning prep): the decoder's block
+    plan in reverse. Strided causal convs with residual units at dilation
+    (1, 3, 9) and channel doubling, ConvNeXt downsampling stages, a
+    sliding-window transformer, then 16-stage residual VQ against the
+    decoder's codebooks (models/encoder.py). Tensor names mirror the
+    decoder's under ``encoder.*``."""
+
+    num_codebooks: int = 16
+    codebook_size: int = 2048
+    hidden_size: int = 1024
+    num_hidden_layers: int = 8
+    num_attention_heads: int = 16
+    num_key_value_heads: int = 16
+    intermediate_size: int = 3072
+    sliding_window: int = 72
+    rope_theta: float = 10000.0
+    rms_norm_eps: float = 1e-5
+    layer_scale_initial_scale: float = 0.01
+    decoder_dim: int = 1536  # mirrored channel plan
+    # downsample rates applied in order (the decoder's upsampling reversed)
+    downsample_rates: Tuple[int, ...] = (3, 4, 5, 8)
+    downsampling_ratios: Tuple[int, ...] = (2, 2)
+    sample_rate: int = 24000
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_attention_heads
+
+    @property
+    def total_downsample(self) -> int:
+        out = 1
+        for r in self.downsample_rates + self.downsampling_ratios:
+            out *= r
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
 class SamplingConfig:
     """code_0 sampling policy and the code predictor's group sampling."""
 
@@ -146,6 +185,7 @@ class TTSConfig:
     talker: TalkerConfig = TalkerConfig()
     code_predictor: CodePredictorConfig = CodePredictorConfig()
     vocoder: VocoderConfig = VocoderConfig()
+    encoder: EncoderConfig = EncoderConfig()
     sampling: SamplingConfig = SamplingConfig()
     max_tokens: int = 200
 
@@ -170,5 +210,12 @@ def tiny_tts_config(max_tokens: int = 16) -> TTSConfig:
         intermediate_size=32, sliding_window=8,
         decoder_dim=32,
     )
+    enc = EncoderConfig(
+        num_codebooks=16, codebook_size=2048,
+        hidden_size=16, num_hidden_layers=2,
+        num_attention_heads=4, num_key_value_heads=4,
+        intermediate_size=32, sliding_window=8,
+        decoder_dim=32,
+    )
     return TTSConfig(talker=talker, code_predictor=cp, vocoder=voc,
-                     max_tokens=max_tokens)
+                     encoder=enc, max_tokens=max_tokens)

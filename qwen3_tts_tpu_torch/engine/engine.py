@@ -28,7 +28,6 @@ attention runs on K5.
 
 from __future__ import annotations
 
-import contextlib
 import dataclasses
 import hashlib
 import math
@@ -50,13 +49,14 @@ from qwen3_tts_tpu_torch.config import (
 from qwen3_tts_tpu_torch.engine import generate as gen
 from qwen3_tts_tpu_torch.io import wav as wav_io
 from qwen3_tts_tpu_torch.io import weights as weights_io
-from qwen3_tts_tpu_torch.io.tokenizer import ByteFallbackTokenizer
+from qwen3_tts_tpu_torch.io.tokenizer import load_tokenizer
 from qwen3_tts_tpu_torch.models import talker as tk
 from qwen3_tts_tpu_torch.models import vocoder as voc
 from qwen3_tts_tpu_torch.models import vocoder_stream as vstream
 from qwen3_tts_tpu_torch.models.code_predictor import CodePredictor
 from qwen3_tts_tpu_torch.ops import quant
 from qwen3_tts_tpu_torch.ops import sampling as smp
+from qwen3_tts_tpu_torch.utils.profiling import stage as _stage
 from qwen3_tts_tpu_torch.utils.text import piece_token_budget, split_for_budget
 
 
@@ -109,20 +109,14 @@ def vocode(vp: Dict, codes: np.ndarray, cfg, device) -> np.ndarray:
                                              codes, device=device))
 
 
-@contextlib.contextmanager
-def _stage(timings: Dict[str, float], name: str):
-    """Adds the wall seconds of the block to timings[name]."""
-    t = time.perf_counter()
-    try:
-        yield
-    finally:
-        timings[name] = timings.get(name, 0.0) + time.perf_counter() - t
-
-
 class TTSEngine:
-    """Single-request TTS engine on one device. ``model_dir=None`` runs
-    with random weights drawn from ``seed``; ``params`` supplies weights
-    in the port's layout (io/weights.py) instead. ``quantize``: None
+    """Single-request TTS engine on one device. ``model_dir`` loads a
+    checkpoint (io/weights.load_params: a ``params.npz`` of either
+    package, or an HF directory with ``model.safetensors`` and
+    ``speech_tokenizer/``), its geometry too when ``cfg`` is None, and its
+    tokenizer (io/tokenizer.load_tokenizer); ``model_dir=None`` runs with
+    random weights drawn from ``seed``; ``params`` supplies weights in the
+    port's layout (io/weights.py) instead. ``quantize``: None
     (dense), "int8" (talker and code predictor) or "int8-cp" (only the
     code predictor; a dense talker in ``dtype``). A talker or code
     predictor in ``params`` that is already int8 (quant.quantize_talker,
@@ -142,17 +136,31 @@ class TTSEngine:
                  params: Optional[Dict] = None,
                  quantize: Optional[str] = None,
                  device="cuda"):
-        if model_dir is not None:
-            raise NotImplementedError(
-                "checkpoint loading is not ported yet (ROADMAP: HF "
-                "safetensors loading); pass params= or model_dir=None")
         if quantize not in (None, "int8", "int8-cp"):
             raise ValueError(f"unsupported quantize={quantize!r}")
-        self.cfg = cfg or TTSConfig()
         self.device = torch.device(device)
+        # seconds of loading a model_dir: "read", "map", "to_device"
+        self.load_seconds: Dict[str, float] = {}
+        if cfg is None and model_dir is not None:
+            # the geometry from the checkpoint, in load_params' order:
+            # params.npz (its embedded config, else its shapes), then the
+            # safetensors header
+            npz = os.path.join(model_dir, "params.npz")
+            if os.path.exists(npz):
+                cfg = weights_io.read_npz_config(npz)
+                if params is None:
+                    params = weights_io.load_params(
+                        model_dir, TTSConfig(), dtype, seed, self.device,
+                        self.load_seconds)
+                if cfg is None:
+                    cfg = weights_io.config_from_params(params)
+            elif os.path.exists(os.path.join(model_dir,
+                                             "model.safetensors")):
+                cfg = weights_io.detect_tts_config(model_dir)
+        self.cfg = cfg or TTSConfig()
         params = (dict(params) if params is not None else
-                  weights_io.init_random_params(self.cfg, seed, dtype,
-                                                self.device))
+                  weights_io.load_params(model_dir, self.cfg, dtype, seed,
+                                         self.device, self.load_seconds))
         pre_t = quant.is_quantized(params["talker"])
         pre_c = quant.is_quantized(params["code_predictor"])
         if pre_t or pre_c:
@@ -187,7 +195,7 @@ class TTSEngine:
         self._tp = self.talker.weights()
         self._cpp = self.code_predictor.weights()
         self._vp = self.vocoder.weights()
-        self.tokenizer = ByteFallbackTokenizer()
+        self.tokenizer = load_tokenizer(model_dir)
         # streaming: first audio after 8 tokens, one more chunk of 56 to
         # bank playout headroom, then the rest in one run_steps call
         self.head_schedule = (8, 56)

@@ -1,6 +1,8 @@
-"""Development tools of the port: twins of the JAX package's tools/dev
-probes, run as ``python -m qwen3_tts_tpu_torch.tools.<name>``. Their
-progress lines go to stderr, as the JAX tools' do."""
+"""Tools of the port, run as ``python -m qwen3_tts_tpu_torch.tools.<name>``:
+the offline tools ``convert_weights`` and ``encode_reference_audio``
+(twins of the JAX package's tools/), and development probes and
+benchmarks (twins of its tools/dev probes), whose progress lines go to
+stderr, as the JAX tools' do."""
 
 from __future__ import annotations
 

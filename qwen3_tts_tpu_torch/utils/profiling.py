@@ -1,14 +1,25 @@
-"""Device tracing for the command line's ``--profile``. Twin of
-qwen3_tts_tpu/utils/profiling.py's ``device_trace`` (the engine times its
-stages itself, engine._stage)."""
+"""Device tracing for the command line's ``--profile`` (twin of
+qwen3_tts_tpu/utils/profiling.py's ``device_trace``), and the stage
+timer of the engine's requests and of checkpoint loading."""
 
 from __future__ import annotations
 
 import contextlib
 import os
-from typing import Optional
+import time
+from typing import Dict, Optional
 
 import torch
+
+
+@contextlib.contextmanager
+def stage(timings: Dict[str, float], name: str):
+    """Adds the wall seconds of the block to timings[name]."""
+    t = time.perf_counter()
+    try:
+        yield
+    finally:
+        timings[name] = timings.get(name, 0.0) + time.perf_counter() - t
 
 
 @contextlib.contextmanager

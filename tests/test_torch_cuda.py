@@ -689,3 +689,51 @@ def test_int8_cp_engine_and_prefix_cache_on_the_card(cuda):
     np.testing.assert_array_equal(hit.codes, cold.codes)
     np.testing.assert_array_equal(hit.audio_int16, cold.audio_int16)
     assert tts.talker_decode_step_fused.launches == k3
+
+
+def test_safetensors_read_to_the_card_equals_the_host(cuda, tmp_path):
+    """io/safetensors.read_safetensors(device="cuda") gives the host's
+    tensors, dtypes (bf16 kept) and bits."""
+    from qwen3_tts_tpu_torch.io.safetensors import read_safetensors
+    import chip_smoke
+    g = torch.Generator().manual_seed(0)
+    tensors = {"bf16": torch.randn(33, 17, generator=g).to(torch.bfloat16),
+               "f32": torch.randn(5, 3, 7, generator=g),
+               "i64": torch.arange(9), "i8": torch.arange(-4, 4).to(
+                   torch.int8), "scalar": torch.tensor(1.5)}
+    path = str(tmp_path / "x.safetensors")
+    chip_smoke.write_safetensors(path, tensors)
+    host = read_safetensors(path)
+    card = read_safetensors(path, device=cuda)
+    assert set(host) == set(card) == set(tensors)
+    for k, t in tensors.items():
+        assert card[k].device.type == "cuda" and card[k].dtype == t.dtype
+        assert torch.equal(card[k].cpu(), host[k]) and torch.equal(host[k], t)
+
+
+def test_encoder_on_the_card_matches_the_host(cuda):
+    """The FP32 encoder (TF32 off) at the tiny geometry on the card:
+    latents within 1e-4 of the host's scale (chip_smoke.py's bound at
+    the full geometry), and the host's RVQ codes
+    except for counted near ties (chip_smoke._rvq_flips: the two rows'
+    distances within 1e-5 relative)."""
+    import chip_smoke
+    from qwen3_tts_tpu_torch import config as pconfig
+    from qwen3_tts_tpu_torch.io import weights as tweights
+    from qwen3_tts_tpu_torch.models import encoder as tenc
+    cfg = pconfig.tiny_tts_config()
+    ep = tenc.init_encoder_params(cfg.encoder, seed=1)
+    vp = tweights.init_vocoder_params(cfg.vocoder, seed=2)
+    wav = torch.from_numpy((np.random.default_rng(3).standard_normal(
+        (1, 1920 * 12)) * 0.1).astype(np.float32))
+    tree = tweights.to_device({"encoder": ep, "vocoder": vp}, cuda)
+    z_host = tenc.encode_features(ep, wav, cfg.encoder)
+    z_card = tenc.encode_features(tree["encoder"], wav.to(cuda),
+                                  cfg.encoder).cpu()
+    scale = float(z_host.abs().max())
+    assert float((z_card - z_host).abs().max()) <= 1e-4 * scale
+    cb = tenc.decoder_codebooks(vp, cfg.vocoder)
+    got = tenc.rvq_encode(tenc.decoder_codebooks(tree["vocoder"], cfg.vocoder),
+                          z_card.to(cuda))[0].cpu().numpy()
+    want = tenc.rvq_encode(cb, z_host)[0].numpy()
+    chip_smoke._rvq_flips(got, want, z_host[0].numpy(), cb.numpy())

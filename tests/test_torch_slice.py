@@ -181,10 +181,11 @@ def test_engine_int8_synthesize_on_cpu(engine, tmp_path):
 
 
 def test_engine_refuses_what_is_not_ported(engine):
-    """Checkpoints are refused, naming their ROADMAP item; streaming,
-    once refused here, is ported: its pieces give the non-streaming codes
-    and audio. Voice cloning, once refused here too, is ported: a prompt
-    dir that does not exist is the JAX engine's ValueError."""
+    """Streaming, once refused here, is ported: its pieces give the
+    non-streaming codes and audio. Voice cloning, once refused here too,
+    is ported: a prompt dir that does not exist is the JAX engine's
+    ValueError. Checkpoints, once refused here, are ported: a model dir
+    without weights is the JAX engine's FileNotFoundError."""
     pieces = []
     res = engine.synthesize("a", streaming=True, on_chunk=pieces.append)
     want = engine.synthesize("a")
@@ -192,7 +193,7 @@ def test_engine_refuses_what_is_not_ported(engine):
     np.testing.assert_array_equal(np.concatenate(pieces), want.audio_int16)
     with pytest.raises(ValueError, match="invalid prompt_dir"):
         engine.synthesize("a", prompt_dir="/nonexistent")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(FileNotFoundError):
         tengine.TTSEngine(pconfig.tiny_tts_config(), model_dir="x",
                           device="cpu")
     with pytest.raises(ValueError):
