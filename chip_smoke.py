@@ -91,6 +91,21 @@
    for near ties (counted), the encoder's ms; the loaded engine's cloned
    request from that prompt dir (the tile at the cloned R) equal to the
    engine's; the CLI with --model_dir --quantize int8 writes a WAV.
+   Then the serving tier (phase_serving, before any profile): the int8
+   engine's daemon on the native accept loop (libttsrt must build) with
+   a voice registry: the three texts as blobs, one chunked stream, one
+   long request and one voice by name, each equal to the engine's own
+   synthesis bit for bit (the stream to its streamed audio, within +-1
+   LSB of the blob), the same daemon over HTTP (/v1/audio/speech equal
+   to the blob, /metrics parsed); the bf16 batched daemon (4 slots,
+   decode_chunk 32) dense (K5) then paged (K4), six concurrent clients
+   of at most 48 tokens, two streaming, at pipeline_depth 1 and 2 in
+   turns (1, 2, 2, 1, 1, 2 after a warm-up of each): every run's audio
+   equal to the first depth-1 run's bit for bit; audio-s per wall-s,
+   request wall p50 and first frame p50 and p95 per depth; the compat
+   stack over the int8 weights through the reference client (codes in
+   range, n_tokens x 1920 samples, K3, K2 and K1 launched); K1-K5
+   launched in the phase.
 4. Slice: TTSEngine(TTSConfig(), quantize="int8") synthesizes three short
    texts; each request must give codes in range, n_tokens * 1920 finite
    samples, and launch K1 (on both routes), K2 and K3; K1 at most 23
@@ -2272,6 +2287,341 @@ def phase_checkpoint(eng, params, card: str, counters: dict) -> dict:
     return launches
 
 
+# the serving phase's long request: two sentence pieces under the byte
+# tokenizer's piece budget of 33 tokens
+SERVE_LONG = "Привет! Hello there, this is the port."
+# the batched daemon's runs: depth 1 and 2 in turns, three each
+SERVE_DEPTHS = (1, 2, 2, 1, 1, 2)
+SERVE_STREAMING = (1, 4)
+SERVE_MAX_TOKENS = 48
+
+
+def _wait_socket(path: str) -> None:
+    deadline = time.time() + 60
+    while not os.path.exists(path):
+        check(time.time() < deadline, f"serving: {path} never appeared")
+        time.sleep(0.02)
+
+
+def _serve_engine_daemon(eng, root: str, card: str) -> None:
+    """The int8 engine's daemon on the native accept loop, with a voice
+    registry and the HTTP gateway: blobs, a stream, a long request and a
+    voice by name, each against eng's own synthesis."""
+    import http.client
+    import threading
+    import numpy as np
+    from qwen3_tts_tpu_torch.runtime import native
+    from qwen3_tts_tpu_torch.serve import daemon as dm
+    from qwen3_tts_tpu_torch.serve.http import serve_http
+    from qwen3_tts_tpu_torch.serve.voices import VoiceRegistry
+    check(native.available(), "serving: libttsrt did not build (g++ on "
+          "native/ttsrt.cc), so the daemon would fall back to the Python "
+          "accept loop")
+    voice_dir = os.path.join(root, "voices", "clone")
+    os.makedirs(voice_dir)
+    np.save(os.path.join(voice_dir, "ref_codec_tokens.npy"),
+            np.random.default_rng(7).integers(
+                0, 2048, (CLONE_FRAMES, 16)).astype(np.int64))
+    with open(os.path.join(voice_dir, "ref_text.txt"), "w") as f:
+        f.write(CLONE_TEXT)
+    reg = VoiceRegistry(os.path.join(root, "voices"))
+    check(reg.names() == ["clone"], f"serving: registry {reg.names()}")
+    sock = os.path.join(root, "engine.sock")
+    daemon = dm.TTSDaemon(eng, sock, voices=reg)
+    native_calls = []
+    real_serve_unix = native.serve_unix
+
+    def counted_serve_unix(*a, **k):
+        native_calls.append(a[0])
+        return real_serve_unix(*a, **k)
+
+    native.serve_unix = counted_serve_unix
+    t = threading.Thread(target=daemon.serve, daemon=True)
+    t.start()
+    srv = None
+    try:
+        _wait_socket(sock)
+        check(native_calls == [sock], "serving: the engine daemon is not "
+              "on the native accept loop")
+        client = dm.DaemonClient(sock)
+        blobs = {}
+        for i, text in enumerate(TEXTS):
+            eng._prefix_cache.clear()
+            t0 = time.perf_counter()
+            hdr, audio = client.synthesize(text, seed=i)
+            wall = time.perf_counter() - t0
+            want = eng.synthesize(text, seed=i)
+            check(hdr["n_tokens"] == want.n_tokens > 0,
+                  f"engine daemon blob {i}: n_tokens {hdr['n_tokens']} "
+                  f"!= {want.n_tokens}")
+            check(np.array_equal(audio, want.audio_int16),
+                  f"engine daemon blob {i}: audio differs from "
+                  "eng.synthesize")
+            blobs[i] = audio
+            print(f"engine daemon blob {i}: n_tokens={hdr['n_tokens']} "
+                  f"{len(audio) * 2} bytes of int16, client wall "
+                  f"{wall:.4f} s, engine total {hdr['total_seconds']:.4f} s "
+                  f"(framing and socket {(wall - hdr['total_seconds']) * 1e3:.2f}"
+                  f" ms), {wall / hdr['n_tokens'] * 1e3:.2f} ms/token; "
+                  f"equal to eng.synthesize bit for bit [{card}]")
+        # a chunked stream
+        frames, first = [], []
+        t0 = time.perf_counter()
+
+        def on_frame(h, a):
+            if "chunk" in h:
+                if not first:
+                    first.append(time.perf_counter() - t0)
+                frames.append(a)
+
+        hdr, audio = client.synthesize(TEXTS[1], seed=1, stream=True,
+                                       on_chunk=on_frame)
+        wall = time.perf_counter() - t0
+        pieces = []
+        want = eng.synthesize(TEXTS[1], seed=1, streaming=True,
+                              on_chunk=pieces.append)
+        check(np.array_equal(np.concatenate(frames), audio),
+              "engine daemon stream: the frames are not its audio")
+        check(np.array_equal(audio, want.audio_int16),
+              "engine daemon stream: audio differs from eng's stream")
+        check(len(frames) == len(pieces), "engine daemon stream: "
+              f"{len(frames)} frames for {len(pieces)} engine pieces")
+        dmax, share = int16_delta(audio, blobs[1])
+        check(dmax <= 1, f"engine daemon stream: {dmax} LSB off the blob")
+        print(f"engine daemon stream: {len(frames)} frames, n_tokens "
+              f"{hdr['n_tokens']}, first frame {first[0]:.4f} s after the "
+              f"request (engine first_audio_seconds "
+              f"{hdr['first_audio_seconds']:.4f}), wall {wall:.4f} s; equal "
+              f"to eng's stream bit for bit, int16 max|diff| {dmax} against "
+              f"the blob [{card}]")
+        # a long request and a voice by name
+        hdr, audio = client.synthesize(SERVE_LONG, seed=5, long=True)
+        want = eng.synthesize_long(SERVE_LONG, seed=5)
+        check(hdr["n_tokens"] == want.n_tokens and np.array_equal(
+            audio, want.audio_int16), "engine daemon long: differs from "
+            "eng.synthesize_long")
+        hdr_v, audio_v = client.synthesize(TEXTS[2], seed=2, voice="clone")
+        want_v = eng.synthesize(TEXTS[2], seed=2, prompt_dir=voice_dir)
+        check(np.array_equal(audio_v, want_v.audio_int16),
+              "engine daemon voice: differs from the prompt dir request")
+        check(not np.array_equal(audio_v, blobs[2]),
+              "engine daemon voice: the voice changed nothing")
+        print(f"engine daemon long: {hdr['n_tokens']} tokens; voice "
+              f"'clone': {hdr_v['n_tokens']} tokens; both equal to eng bit "
+              f"for bit [{card}]")
+        # the same daemon over HTTP
+        srv = serve_http(daemon, port=0)
+        c = http.client.HTTPConnection(*srv.server_address, timeout=300)
+        c.request("POST", "/v1/audio/speech", body=json.dumps(
+            {"input": TEXTS[0], "seed": 0}).encode())
+        r = c.getresponse()
+        body = r.read()
+        check(r.status == 200, f"HTTP speech: status {r.status}")
+        import io
+        import wave
+        with wave.open(io.BytesIO(body), "r") as wf:
+            got = np.frombuffer(wf.readframes(wf.getnframes()), np.int16)
+        check(np.array_equal(got, blobs[0]),
+              "HTTP speech: the WAV's samples differ from the blob")
+        c.request("GET", "/metrics")
+        r = c.getresponse()
+        metrics = dict(line.rsplit(" ", 1) for line in
+                       r.read().decode().strip().split("\n"))
+        c.close()
+        check(r.status == 200 and float(metrics["qwen3_tts_requests_total"])
+              >= 6, "HTTP metrics")
+        print(f"HTTP gateway: /v1/audio/speech wav equal to the blob; "
+              f"/metrics {len(metrics)} series, requests_total "
+              f"{metrics['qwen3_tts_requests_total']}, errors_total "
+              f"{metrics['qwen3_tts_errors_total']} [{card}]")
+    finally:
+        if srv is not None:
+            srv.shutdown()
+        daemon.stop()
+        t.join(timeout=30)
+        native.serve_unix = real_serve_unix
+    check(not t.is_alive(), "engine daemon: did not stop")
+
+
+def _batched_run(sock: str) -> dict:
+    """Six concurrent clients (two streaming) on a batched daemon: their
+    audio, walls, first frames and the run's wall."""
+    import threading
+    import numpy as np
+    from qwen3_tts_tpu_torch.serve.daemon import DaemonClient
+    out, errors = {}, []
+
+    def call(i):
+        t0 = time.perf_counter()
+        first = []
+
+        def on_frame(h, a):
+            if "chunk" in h and not first:
+                first.append(time.perf_counter() - t0)
+        try:
+            hdr, audio = DaemonClient(sock).synthesize(
+                BATCH_TEXTS[i], seed=i, max_tokens=SERVE_MAX_TOKENS,
+                stream=i in SERVE_STREAMING, on_chunk=on_frame)
+            out[i] = (hdr, audio, time.perf_counter() - t0,
+                      first[0] if first else None)
+        except Exception as e:     # reported below, on the main thread
+            errors.append((i, e))
+
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=call, args=(i,))
+               for i in range(len(BATCH_TEXTS))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=600)
+    wall = time.perf_counter() - t0
+    check(not errors, f"batched daemon clients failed: {errors}")
+    check(sorted(out) == list(range(len(BATCH_TEXTS))),
+          "batched daemon: a client did not finish")
+    audio_s = sum(len(o[1]) for o in out.values()) / 24000
+    return {"audio": {i: o[1] for i, o in out.items()}, "wall": wall,
+            "audio_s": audio_s,
+            "req_walls": [o[2] for o in out.values()],
+            "first": [out[i][3] for i in SERVE_STREAMING],
+            "n_tokens": {i: o[0]["n_tokens"] for i, o in out.items()}}
+
+
+def _serve_batched(eng, params, root: str, card: str,
+                   counters: dict) -> dict:
+    """The batched daemon over the bf16 batcher (4 slots, decode_chunk
+    32), dense (K5) then paged (K4), at pipeline_depth 1 and 2 in turns:
+    every run's audio equal to the first depth-1 run's; audio-s per
+    wall-s, request wall p50 and the streaming clients' first frame p50
+    and p95 per depth. Returns the attention kernels' launches."""
+    import threading
+    import numpy as np
+    from qwen3_tts_tpu_torch.config import TalkerConfig, TTSConfig
+    from qwen3_tts_tpu_torch.serve import daemon as dm
+    from qwen3_tts_tpu_torch.serve.batching import ContinuousBatcher
+    cfg = TTSConfig(talker=TalkerConfig(attention_impl="pallas"))
+    att = {}
+    for paged in (False, True):
+        label = "paged" if paged else "dense"
+        kw = dict(paged=True, page_size=64) if paged else {}
+        daemons = {}
+        for depth in (1, 2):
+            b = ContinuousBatcher(cfg, params, batch_size=4, decode_chunk=32,
+                                  pipeline_depth=depth, device="cuda", **kw)
+            d = dm.TTSDaemon(eng, os.path.join(root, f"{label}{depth}.sock"),
+                             batcher=b)
+            t = threading.Thread(target=d.serve, daemon=True)
+            t.start()
+            _wait_socket(d.socket_path)
+            daemons[depth] = (d, t)
+        kname = "paged_attention" if paged else "decode_attention"
+        before = counters[kname].launches
+        runs = {1: [], 2: []}
+        ref = None
+        try:
+            for d, _ in daemons.values():     # warm-up, prefix LRUs too
+                _batched_run(d.socket_path)
+            for depth in SERVE_DEPTHS:
+                r = _batched_run(daemons[depth][0].socket_path)
+                if ref is None:
+                    ref = r
+                for i in range(len(BATCH_TEXTS)):
+                    check(np.array_equal(r["audio"][i], ref["audio"][i]),
+                          f"batched daemon {label} depth {depth}: request "
+                          f"{i}'s audio differs from depth 1's")
+                runs[depth].append(r)
+        finally:
+            for d, t in daemons.values():
+                d.stop()
+                t.join(timeout=60)
+        att[kname] = counters[kname].launches - before
+        check(att[kname] > 0, f"batched daemon {label}: {kname} was not "
+              "launched")
+        for depth in (1, 2):
+            rs = runs[depth]
+            rate = [r["audio_s"] / r["wall"] for r in rs]
+            walls = np.concatenate([r["req_walls"] for r in rs])
+            first = np.array([f for r in rs for f in r["first"]])
+            print(f"batched daemon {label} depth {depth}: audio-s per "
+                  f"wall-s {' '.join(f'{x:.4f}' for x in rate)} (runs in "
+                  f"turns), request wall p50 {np.percentile(walls, 50):.4f}"
+                  f" s, streaming first frame p50 "
+                  f"{np.percentile(first, 50):.4f} s p95 "
+                  f"{np.percentile(first, 95):.4f} s ({len(first)} "
+                  f"frames), tokens {sorted(rs[0]['n_tokens'].items())} [{card}]")
+        print(f"batched daemon {label}: every run's audio equal to the "
+              f"first depth-1 run's, bit for bit ({len(SERVE_DEPTHS)} "
+              f"timed runs) [{card}]")
+    return att
+
+
+def _serve_compat(eng, root: str, card: str, counters: dict) -> None:
+    """The compat stack over the int8 engine's weights: the port's
+    reference client synthesizes one text through the three sockets;
+    codes in range, n_tokens x 1920 samples, K3 and K2 launched."""
+    import numpy as np
+    from qwen3_tts_tpu_torch.serve import compat
+    from qwen3_tts_tpu_torch.tools.reference_client import reference_flow
+    socks = tuple(os.path.join(root, f"{n}.sock")
+                  for n in ("talker", "cp", "voc"))
+    servers, threads = compat.launch_all(eng.params, eng.cfg, eng.tokenizer,
+                                         *socks, device="cuda")
+    before = _launches(counters)
+    try:
+        for s in socks:
+            _wait_socket(s)
+        t0 = time.perf_counter()
+        codes, audio = reference_flow(TEXTS[0], "russian", eng.params,
+                                      *socks, log=lambda m: None)
+        wall = time.perf_counter() - t0
+    finally:
+        for s in servers:
+            s.stop()
+        for t in threads:
+            t.join(timeout=30)
+    grew = _grew(before, counters)
+    n = len(codes)
+    check(n > 0, "compat: no tokens")
+    check(bool(((codes >= 0) & (codes < 2048)).all()),
+          "compat: codes out of [0, 2048)")
+    check(len(audio) == n * 1920, f"compat: {len(audio)} samples for {n} "
+          "tokens")
+    for k in ("talker_step", "cp_decode", "qmatmul"):
+        check(grew[k] > 0, f"compat: {k} was not launched")
+    print(f"compat stack: {n} tokens through the three sockets in "
+          f"{wall:.3f} s ({wall / n * 1e3:.2f} ms/token), {len(audio)} "
+          f"samples; launches K3 {grew['talker_step']} K2 "
+          f"{grew['cp_decode']} K1 {grew['qmatmul']} [{card}]")
+
+
+def phase_serving(eng, params, card: str, counters: dict) -> dict:
+    """The serving tier at full geometry, before any profiler session:
+    the int8 engine's daemon on the native loop (and over HTTP), the
+    bf16 batched daemon at pipeline_depth 1 and 2, and the compat stack.
+    Returns K1-K5's launches in the phase."""
+    import shutil
+    import tempfile
+    t_phase = time.perf_counter()
+    for fn in counters.values():
+        fn.launches = 0
+    root = tempfile.mkdtemp(prefix="q3serve_")
+    try:
+        _serve_engine_daemon(eng, root, card)
+        att = _serve_batched(eng, params, root, card, counters)
+        _serve_compat(eng, root, card, counters)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = _launches(counters)
+    for k in ("qmatmul", "talker_step", "cp_decode", "decode_attention",
+              "paged_attention"):
+        check(launches[k] > 0, f"serving: {k} was not launched")
+    print(f"serving phase: {time.perf_counter() - t_phase:.1f} s; launches "
+          f"K1 {launches['qmatmul']} (qsplit {launches['qmatmul_qsplit']}, "
+          f"tile {launches['qmatmul_tile']}) K2 {launches['cp_decode']} K3 "
+          f"{launches['talker_step']} K5 {att['decode_attention']} K4 "
+          f"{att['paged_attention']} [{card}]")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2344,6 +2694,7 @@ def main() -> int:
     phase_chunked_vocoder(eng, card)
     phase_engine_surface(eng, params, card, counters)
     phase_checkpoint(eng, params, card, counters)
+    phase_serving(eng, params, card, counters)
     by_name = {k["name"]: k for k in kernels}
     phase_kernel_profiles(eng, card, by_name["talker_step"],
                           by_name["cp_decode"])

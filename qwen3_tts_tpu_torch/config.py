@@ -173,6 +173,7 @@ NEWLINE_TOKEN_ID = 198
 SAMPLE_RATE = 24000
 SAMPLES_PER_TOKEN = 1920
 VOC_CHUNK_SIZE = 64    # tokens a chunk of synthesize_exact past one window
+VOC_OVERLAP = 16       # crossfade tokens of synthesize_chunked
 
 # accepted for API compatibility; the language does not change the prefix
 SUPPORTED_LANGUAGES = (

@@ -206,6 +206,13 @@ class TTSEngine:
         self._prefix_cache_cap = 4
         self.kv_cache_dir: Optional[str] = None
 
+    @property
+    def params(self) -> Dict:
+        """The weight trees on the engine's device, in the layout that
+        ContinuousBatcher takes (the batched daemon shares them)."""
+        return {"talker": self._tp, "code_predictor": self._cpp,
+                "vocoder": self._vp}
+
     def _encode_text(self, text: str) -> Tuple[np.ndarray, int]:
         """Token ids on the host, padded to a bucket that fits the KV
         allocation; text past it is truncated with a warning. Returns

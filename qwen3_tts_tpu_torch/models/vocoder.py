@@ -25,6 +25,7 @@ import torch.nn.functional as F
 from qwen3_tts_tpu_torch.config import (
     SAMPLES_PER_TOKEN,
     VOC_CHUNK_SIZE,
+    VOC_OVERLAP,
     VocoderConfig,
 )
 from qwen3_tts_tpu_torch.models import transformer as tfm
@@ -257,6 +258,53 @@ def synthesize_chunked_context(decode_fn, codes: np.ndarray,
         jobs.append(out[0, ctx * spt:(ctx + ce - cs) * spt])
     parts = [j.cpu().numpy() for j in jobs]
     return np.concatenate(parts) if parts else np.zeros(0, np.float32)
+
+
+def synthesize_chunked(decode_fn, codes: np.ndarray,
+                       max_tokens: int = VOC_CHUNK_SIZE,
+                       overlap: int = VOC_OVERLAP,
+                       device="cuda") -> np.ndarray:
+    """The reference vocoder server's overlap crossfade, kept for the
+    compat vocoder server's wire parity (serve/compat.py); every other
+    path decodes through synthesize_exact. ``decode_fn`` takes (1,
+    max_tokens, 16) int32 on ``device`` and returns (1, max_tokens *
+    1920) f32 there. Up to ``max_tokens`` tokens: one zero-padded window,
+    trimmed. Past that, windows advance by ``max_tokens - overlap`` and
+    each overlap is blended by a linear fade-out/fade-in.
+
+    Wire parity includes the reference's defect: a last window shorter
+    than the overlap is appended raw, repeating up to overlap - 1 tokens
+    of audio already emitted. Every window is launched before any is
+    fetched."""
+    n_tokens = len(codes)
+    spt = SAMPLES_PER_TOKEN
+
+    def dispatch(chunk: np.ndarray):
+        return decode_fn(pad_window(chunk, max_tokens, device)), len(chunk)
+
+    if n_tokens <= max_tokens:
+        out, m = dispatch(codes)
+        return out[0, :m * spt].cpu().numpy()
+
+    step = max_tokens - overlap
+    ov_samples = overlap * spt
+    fade_out = np.linspace(1.0, 0.0, ov_samples, dtype=np.float32)
+    fade_in = 1.0 - fade_out
+    jobs = [dispatch(codes[cs:min(cs + max_tokens, n_tokens)])
+            for cs in range(0, n_tokens, step)]
+    result = np.array([], dtype=np.float32)
+    for i, (out, m) in enumerate(jobs):
+        audio_chunk = out[0, :m * spt].cpu().numpy()
+        if i == 0:
+            result = audio_chunk
+        elif len(result) >= ov_samples and len(audio_chunk) >= ov_samples:
+            blended = (result[-ov_samples:] * fade_out
+                       + audio_chunk[:ov_samples] * fade_in)
+            result = np.concatenate(
+                [result[:-ov_samples], blended, audio_chunk[ov_samples:]])
+        else:
+            result = np.concatenate([result, audio_chunk])
+    return result
 
 
 def to_int16_device(audio: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
 """Continuous batching: many requests through one batched decode loop.
-Twin of qwen3_tts_tpu/serve/batching.py at pipeline_depth=1.
+Twin of qwen3_tts_tpu/serve/batching.py.
 
 - One batched ``GenState`` with B slots; the decode loop
   (engine/generate.run_steps) advances every slot in lockstep,
@@ -32,8 +32,16 @@ Twin of qwen3_tts_tpu/serve/batching.py at pipeline_depth=1.
   host; its segments concatenate to its audio within the stream
   contract (int16 +-1 LSB).
 
-Not ported yet, and refused with the ROADMAP item named:
-``pipeline_depth=2`` and a device ``mesh``.
+- ``pipeline_depth=2`` dispatches chunk k+1 before it harvests chunk k,
+  so the harvest's host work (status read, stream segments, vocoding)
+  overlaps the steps of chunk k+1 still queued on the device: at most
+  DONE_CHECK_STRIDE, since the loop's host reads ``done`` that often.
+  A slot that finished in chunk k is freed a chunk later than at depth
+  1 (PERF.md has the H100's trade). Results equal depth 1's: a
+  request's codes depend only on its seed.
+
+Not ported yet, and refused with the ROADMAP item named: a device
+``mesh``.
 """
 
 from __future__ import annotations
@@ -189,9 +197,6 @@ class ContinuousBatcher:
         if pipeline_depth not in (1, 2):
             raise ValueError(f"pipeline_depth must be 1 or 2, "
                              f"got {pipeline_depth}")
-        if pipeline_depth == 2:
-            raise NotImplementedError(
-                "pipeline_depth=2 " + _ROADMAP.format("pipeline_depth=2"))
         if mesh is not None:
             raise NotImplementedError(
                 "a device mesh " + _ROADMAP.format("mesh and multi-process"))
@@ -243,6 +248,9 @@ class ContinuousBatcher:
         # (done, pos) host mirrors left by the harvest's status read: the
         # next step's admission uses them instead of a second device read
         self._status_mirror: Optional[tuple] = None
+        # pipeline_depth=2: (state, status snapshot) of the chunk
+        # dispatched last step, harvested one step late
+        self._pending: Optional[tuple] = None
         self._queue: "queue.Queue[_Request]" = queue.Queue()
         self._waiting: List[_Request] = []   # scheduler-thread-only
         self._backlog: List[_Request] = []   # paged: waiting for pages
@@ -372,6 +380,7 @@ class ContinuousBatcher:
         _fail(leftovers + [self._slot_req[s] for s in inflight],
               RuntimeError("batcher stopped"))
         self._status_mirror = None
+        self._pending = None
         self._free_slots_on_device(inflight)
         self._draining = False
         self._stop.clear()
@@ -389,11 +398,35 @@ class ContinuousBatcher:
             except queue.Empty:
                 return out
 
+    @staticmethod
+    def _snapshot_status(state: gen.GenState) -> tuple:
+        """(done, n_codes, pos) of ``state`` as they stand now in stream
+        order, in one new device tensor whose copy to pinned host memory
+        starts at once. On the card the copy is done when the chunk ends,
+        so a depth-2 harvest does not wait for the steps of the next
+        chunk queued behind it. Read it with _read_status."""
+        st = torch.stack([state.done.to(torch.int32), state.n_codes,
+                          state.pos])
+        if st.device.type != "cuda":
+            return st, None
+        host = torch.empty(st.shape, dtype=st.dtype, pin_memory=True)
+        host.copy_(st, non_blocking=True)
+        ready = torch.cuda.Event()
+        ready.record()
+        return host, ready
+
+    @staticmethod
+    def _read_status(snap: tuple) -> tuple:
+        """(done, n_codes, pos) host arrays of a _snapshot_status."""
+        host, ready = snap
+        if ready is not None:
+            ready.synchronize()
+        st = host.numpy()
+        return st[0].astype(bool), st[1].copy(), st[2].copy()
+
     def _fetch_status(self, state: gen.GenState) -> tuple:
         """(done, n_codes, pos) as host arrays, in one device read."""
-        st = torch.stack([state.done.to(torch.int32), state.n_codes,
-                          state.pos]).cpu().numpy()
-        return st[0].astype(bool), st[1].copy(), st[2].copy()
+        return self._read_status(self._snapshot_status(state))
 
     def _cloned_inputs(self, req: _Request, cap: int) -> tuple:
         """A cloning request's reference frames bucketed against ``cap``
@@ -485,9 +518,11 @@ class ContinuousBatcher:
         self._free.extend(self._slot_pages[slot])
         self._slot_pages[slot] = []
 
-    def _evict_cancelled(self, done: np.ndarray) -> None:
+    def _evict_cancelled(self, done: np.ndarray) -> frozenset:
         """Free admitted slots whose request was withdrawn, and flip the
-        host mirror so this step's admission can reuse them."""
+        host mirror so this step's admission can reuse them. Returns the
+        slots (a depth-2 harvest skips them: its status predates the
+        eviction)."""
         victims = [s for s in range(self.batch_size)
                    if self._slot_req[s] is not None
                    and self._slot_req[s].cancelled and not done[s]]
@@ -495,6 +530,7 @@ class ContinuousBatcher:
               RuntimeError("request cancelled"))
         self._free_slots_on_device(victims)
         done[victims] = True
+        return frozenset(victims)
 
     def _admit(self, done: np.ndarray, pos: np.ndarray) -> List[int]:
         """Admit queued requests into free slots; updates the host
@@ -629,19 +665,20 @@ class ContinuousBatcher:
     stream_head_tokens = 8
 
     def _dispatch_stream_windows(self, state: gen.GenState,
-                                 done: np.ndarray,
-                                 n_codes: np.ndarray) -> list:
+                                 done: np.ndarray, n_codes: np.ndarray,
+                                 skip=frozenset()) -> list:
         """Launch each streaming slot's stream steps over its new final
         tokens (StreamStepper.advance): a live slot once min-emit tokens
         are new, its sub-quantum rest waiting for more; a finished slot
         through its end and the zero-code frame that flushes the stream's
-        lag. The steps read the device codes row. Returns (request,
-        segment, n_codes) jobs, not yet fetched."""
+        lag. The steps read the device codes row. Slots in ``skip`` are
+        left out. Returns (request, segment, n_codes) jobs, not yet
+        fetched."""
         jobs = []
         for slot in range(self.batch_size):
             req = self._slot_req[slot]
             if (req is None or req.on_chunk is None
-                    or req.stream_error is not None):
+                    or req.stream_error is not None or slot in skip):
                 continue
             n = int(n_codes[slot])
             if not done[slot]:
@@ -658,25 +695,43 @@ class ContinuousBatcher:
             jobs += [(req, seg, n) for seg in segs]
         return jobs
 
-    def _harvest(self, state: gen.GenState) -> int:
-        """Read the chunk's status (one device read, kept as the next
-        step's mirrors), emit the streaming segments and resolve the
-        finished slots. Stream steps are launched before the codes are
-        copied to the host."""
-        done, n_codes, pos = self._fetch_status(state)
-        self._status_mirror = (done.copy(), pos.copy())
+    def _harvest(self, state: gen.GenState, status: tuple,
+                 skip=frozenset(), local_status=None) -> int:
+        """Read a chunk's status snapshot (kept as the next step's
+        mirrors), emit the streaming segments and resolve the finished
+        slots. Stream steps are launched before the codes are copied to
+        the host.
+
+        At depth 1 ``state`` is the chunk just run. At depth 2 it is the
+        chunk before, and the chunk after it is already queued. The two
+        share the buffers that the loop writes in place (the codes, the
+        KV, the page table); a row's codes below this chunk's n_codes are
+        final, so they read the same whichever chunk wrote last.
+        ``skip``: the slots admitted or evicted after this chunk was
+        dispatched (their done/pos/n_codes were written in place into
+        ``state``, and its status describes the slot's previous
+        occupant); they keep their mirrors from ``local_status``, the
+        admission's (done, pos)."""
+        done, n_codes, pos = self._read_status(status)
+        m_done, m_pos = done.copy(), pos.copy()
+        for s in skip:
+            m_done[s], m_pos[s] = local_status[0][s], local_status[1][s]
+        self._status_mirror = (m_done, m_pos)
         now = time.perf_counter()
         streaming = False
         for s, r in enumerate(self._slot_req):
-            if r is not None and r.t_first is None and n_codes[s] > 0:
+            if r is None or s in skip:
+                continue
+            if r.t_first is None and n_codes[s] > 0:
                 r.t_first = now
-            if r is not None and r.on_chunk is not None and n_codes[s] > 0:
+            if r.on_chunk is not None and n_codes[s] > 0:
                 streaming = True
         finished = [s for s in range(self.batch_size)
-                    if self._slot_req[s] is not None and done[s]]
+                    if self._slot_req[s] is not None and done[s]
+                    and s not in skip]
         if not finished and not streaming:
             return 0
-        jobs = self._dispatch_stream_windows(state, done, n_codes)
+        jobs = self._dispatch_stream_windows(state, done, n_codes, skip)
         # a copy: on the CPU .numpy() would share the buffer that the
         # slot's next request overwrites
         codes_all = (state.codes.cpu().numpy().copy() if finished
@@ -711,6 +766,13 @@ class ContinuousBatcher:
                 req.future.set_exception(e)
             self._slot_req[slot] = None
             if self.paged:
+                # at depth 2 the chunk queued after this one still writes
+                # this frozen slot's K/V at its last position through the
+                # old table row. The zeroing below is queued after that
+                # chunk, and the pages go to another slot only at a later
+                # admission, whose writes are queued later still: stream
+                # order keeps the stale write out of the pages' next
+                # owner.
                 self._release(slot)
         return len(finished)
 
@@ -719,23 +781,35 @@ class ContinuousBatcher:
         """One scheduler iteration: evict cancelled slots, admit, grow
         pages, run one chunk, harvest. One blocking device read per chunk
         (the harvest's status, whose (done, pos) the next admission
-        reuses). Returns True if a chunk ran."""
+        reuses). At pipeline_depth=2 the harvest is of the chunk before
+        this one, which runs after this chunk is dispatched; it skips
+        this step's admissions and evictions. Returns True if a chunk
+        ran."""
         if self._status_mirror is not None:
             done, pos = self._status_mirror
             self._status_mirror = None
         else:
             done, _, pos = self._fetch_status(self._state)
-        self._evict_cancelled(done)
-        self._admit(done, pos)
+        cancelled = self._evict_cancelled(done)
+        admitted = self._admit(done, pos)
         if not any(r is not None for r in self._slot_req):
-            # idle: nothing ran, so the mirrors still hold
+            # idle: nothing ran, so the mirrors still hold; a pending
+            # chunk only advanced frozen rows
+            self._pending = None
             self._status_mirror = (done, pos)
             return False
         if self.paged:
             self._top_up_pages(pos, done)
         self._state = gen.run_steps(self._tp, self._cpp, self._state,
                                     self.cfg, self.decode_chunk)
-        self._harvest(self._state)
+        chunk = (self._state, self._snapshot_status(self._state))
+        if self.pipeline_depth == 1:
+            self._harvest(*chunk)
+        else:
+            prev, self._pending = self._pending, chunk
+            if prev is not None:
+                self._harvest(*prev, skip=frozenset(admitted) | cancelled,
+                              local_status=(done, pos))
         return True
 
     def _loop(self) -> None:
@@ -771,6 +845,7 @@ class ContinuousBatcher:
         their slots (and pages); queued requests survive unless
         ``drain_queue``."""
         self._status_mirror = None
+        self._pending = None
         inflight = [s for s in range(self.batch_size)
                     if self._slot_req[s] is not None]
         _fail([self._slot_req[s] for s in inflight], exc)

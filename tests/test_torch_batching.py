@@ -265,8 +265,8 @@ def test_prefix_that_cannot_fit_fails_instead_of_wedging(params):
 
 
 def test_backpressure_and_refusals(params):
-    """max_queue raises OverloadedError; what is not ported yet raises
-    NotImplementedError naming its ROADMAP item. Streaming (on_chunk),
+    """max_queue raises OverloadedError; what is not ported yet (a device
+    mesh) raises NotImplementedError naming its ROADMAP item. Streaming (on_chunk),
     once refused here, is ported: the request is served and its segments
     make up its audio. Voice cloning, once refused here too, is ported:
     ref_codes without n_target (or the reverse) is a ValueError, as in
@@ -287,6 +287,6 @@ def test_backpressure_and_refusals(params):
         b.submit(ids, n, ref_codes=np.zeros((4, 16)))
     with pytest.raises(ValueError, match="go together"):
         b.submit(ids, n, n_target=1)
-    for kw in (dict(pipeline_depth=2), dict(mesh=object())):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tbatching.ContinuousBatcher(TINY, params, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tbatching.ContinuousBatcher(TINY, params, device="cpu",
+                                    mesh=object())

@@ -737,3 +737,50 @@ def test_encoder_on_the_card_matches_the_host(cuda):
                           z_card.to(cuda))[0].cpu().numpy()
     want = tenc.rvq_encode(cb, z_host)[0].numpy()
     chip_smoke._rvq_flips(got, want, z_host[0].numpy(), cb.numpy())
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_batcher_depth2_equals_depth1_on_the_card(cuda, paged):
+    """The bf16 batcher at full width and a depth of 2 talker layers
+    (the int8 code predictor at full geometry, K2), dense under
+    attention_impl="pallas" (K5) or paged with pages of 64 (K4): six
+    requests through 4 slots, two of them streaming, give at
+    pipeline_depth=2 the codes and int16 audio of pipeline_depth=1 bit
+    for bit, and the attention kernel of the mode launches."""
+    from qwen3_tts_tpu_torch.config import TalkerConfig, TTSConfig
+    from qwen3_tts_tpu_torch.io.weights import init_random_params
+    from qwen3_tts_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention)
+    from qwen3_tts_tpu_torch.ops.kernels.paged_attention import (
+        paged_decode_attention)
+    from qwen3_tts_tpu_torch.serve.batching import ContinuousBatcher
+    cfg = TTSConfig(talker=TalkerConfig(num_layers=2,
+                                        attention_impl="pallas"),
+                    max_tokens=40)
+    params = init_random_params(cfg, seed=0, dtype=torch.bfloat16,
+                                device=cuda)
+    att = paged_decode_attention if paged else decode_attention
+    kw = dict(paged=True, page_size=64) if paged else {}
+    rng = np.random.default_rng(0)
+    texts = [rng.integers(1, 1000, n).astype(np.int32)
+             for n in (5, 9, 3, 12, 7, 4)]
+    out = {}
+    for depth in (1, 2):
+        b = ContinuousBatcher(cfg, params, batch_size=4, decode_chunk=8,
+                              pipeline_depth=depth, device=cuda, **kw)
+        before = (att.launches, tcp.cp_decode_steps.launches)
+        futs = [b.submit(ids, len(ids), seed=i,
+                         on_chunk=(lambda s: None) if i in (1, 4) else None)
+                for i, ids in enumerate(texts)]
+        for _ in range(400):
+            if all(f.done() for f in futs):
+                break
+            b.step()
+        out[depth] = [f.result(timeout=0) for f in futs]
+        assert att.launches > before[0]
+        assert tcp.cp_decode_steps.launches > before[1]
+        assert all(r is None for r in b._slot_req)
+    for (c1, a1), (c2, a2) in zip(out[1], out[2]):
+        assert len(c1) > 0 and len(a1) == len(c1) * 1920
+        np.testing.assert_array_equal(c1, c2)
+        np.testing.assert_array_equal(a1, a2)

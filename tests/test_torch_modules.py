@@ -82,21 +82,29 @@ def params():
 
 def test_port_imports_without_jax():
     """Neither jax nor any module of the JAX package is loaded by the
-    port (the GPU machine has no jax)."""
-    code = ("import sys\n"
-            "import qwen3_tts_tpu_torch.engine.engine\n"
-            "import qwen3_tts_tpu_torch.cli\n"
-            "import qwen3_tts_tpu_torch.serve.batching\n"
-            "import qwen3_tts_tpu_torch.models.vocoder_stream\n"
+    port (the GPU machine has no jax): every module of the package,
+    found by walking it, is imported in one fresh process."""
+    code = ("import importlib, pkgutil, sys\n"
+            "import qwen3_tts_tpu_torch as pkg\n"
+            "names = [m.name for m in pkgutil.walk_packages(\n"
+            "    pkg.__path__, pkg.__name__ + '.')]\n"
+            "for name in names:\n"
+            "    importlib.import_module(name)\n"
+            "for must in ('serve.daemon', 'serve.http', 'serve.compat',\n"
+            "             'serve.voices', 'runtime.native', 'io.weights',\n"
+            "             'models.encoder', 'tools.reference_client'):\n"
+            "    assert pkg.__name__ + '.' + must in names, must\n"
             "assert 'jax' not in sys.modules\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m.split('.')[0] in ('jax', 'qwen3_tts_tpu'))\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            "print(len(names))\n")
     env = dict(os.environ)
     env.pop("PYTHONPATH", None)
     res = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
+    assert int(res.stdout.split()[-1]) >= 50
 
 
 def test_port_sources_never_import_jax():
