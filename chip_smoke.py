@@ -106,6 +106,34 @@
    stack over the int8 weights through the reference client (codes in
    range, n_tokens x 1920 samples, K3, K2 and K1 launched); K1-K5
    launched in the phase.
+   Then the kernels at a tp rank's shapes (phase_tp_kernels): K5 and K4
+   on the talker's heads over tp = 2 and 4 (Hq 8 / Hkv 4, Hq 4 / Hkv 2)
+   at the engine's and the batcher's rows and positions, K1 on every
+   int8 weight of the code predictor's tp = 2 and 4 shards (q|k|v and
+   gate|up grouped) at 1-8 rows, each at error 0 against its plain
+   version. Then the dp x tp tier (phase_mesh, before any profile), every rank a
+   subprocess of this script (--mesh-rank LEG DIR) under its own
+   timeout, a failing rank failing the phase: leg a, one rank in an NCCL
+   world of one: TTSEngine(mesh=make_mesh(1, 1), quantize="int8-cp") on
+   the three texts and the dense (K5) and paged (K4) batchers on six
+   requests (two streaming), 16 tokens each, equal to the same without a
+   mesh bit for bit; leg b, dp 2 x tp 1, two ranks on the one card over
+   gloo: both batchers, every served request's codes, audio and stream
+   segments equal to the one-device batcher's bit for bit, the served
+   sets a partition of the requests; leg c, dp 1 x tp 2 likewise, 8
+   tokens a request: the int8-cp engine with K5 on the three texts
+   (codes equal on both ranks; the talker hidden the first decode step
+   reads and its codec logits at cosine >= 0.999 against the one-rank
+   engine; the share of equal codes printed), one decode step from the
+   one-rank engine's post-prefill state (the talker on the dense cache,
+   K5, and in pages, K4, and the code predictor's prefill and first
+   step, K1 on its shards) at cosine >= 0.999 against one rank on the
+   same state for every hidden and logits, equal on both ranks, and
+   the paged batcher (K4
+   on 4 local kv heads) on three requests, codes equal on both ranks;
+   K1, K4 and K5 launched, K2 and K3 not. Each leg's seconds, ms a token
+   or loop step and launches are printed; two ranks on one card check
+   correctness, not multi-GPU speed.
 4. Slice: TTSEngine(TTSConfig(), quantize="int8") synthesizes three short
    texts; each request must give codes in range, n_tokens * 1920 finite
    samples, and launch K1 (on both routes), K2 and K3; K1 at most 23
@@ -124,7 +152,10 @@
    each variant launching its own kernel and no other.
 9. The command line: --long --quantize int8 --profile DIR writes a WAV
    and a torch.profiler trace.
-10. One JSON line of per-kernel results, then the card line, then
+10. One JSON line of per-kernel results (each kernel's launches on
+   its main path, and ``launches_mesh``: in phase_mesh, summed over its
+   ranks; K1, K4 and K5 with ``max_abs_err_tp_shards``), then the card
+   line, then
    {"ok": true, "device": {...}} as the last line.
 
 Every path is driven with the launch counters set to 0 just before it and
@@ -810,7 +841,7 @@ def _surface_cloning(eng, params, card: str, counters: dict) -> None:
                   f"admission prefix equal bit for bit ({tuple(got.shape)}, "
                   f"prefix_len {int(got_len)}) [{card}]")
         else:
-            b._free.reverse()     # hand out other pages the second time
+            b._free_by_group[0].reverse()  # other pages the second time
         codes2, _, _ = _serve_cloned(b, cloned, plain, label, counters)
         check(all(np.array_equal(x, y) for x, y in zip(codes, codes2)),
               f"{label}: a rerun gave other codes")
@@ -1750,7 +1781,7 @@ def phase_batcher(params, card: str, counters: dict) -> dict:
         if paged:
             check(len(b._free_pages) == b.pool_pages - 1,
                   "paged batcher: pages not all back in the free list")
-            b._free.reverse()      # hand out other pages the second time
+            b._free_by_group[0].reverse()  # other pages the second time
         codes2, _ = _serve(b, card, label + " (rerun)", counters)
         profile_batcher_step(b, card, label)
         same = all(np.array_equal(x, y) for x, y in zip(codes, codes2))
@@ -2622,7 +2653,695 @@ def phase_serving(eng, params, card: str, counters: dict) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase_mesh: the dp x tp tier (parallel/), every rank a subprocess
+# ---------------------------------------------------------------------------
+
+# tokens a request of the mesh phase may take, so that the phase stays
+# near two minutes: leg a's engines and batchers take 16, leg b's batchers
+# phase_batcher's 48, leg c 8 (its two ranks on one card run every tp
+# collective through gloo and the host, ~1.1 s a token)
+MESH_TOKENS = 16
+MESH_TP_TOKENS = 8
+MESH_STREAMING = (1, 4)
+MESH_TP_TEXTS = 3          # requests of leg c's paged batcher
+MESH_RANK_TIMEOUT = 300
+
+
+def _tp_mesh_of(tp: int, rank: int):
+    """A layout-only (1, tp) mesh on cuda:0 seen from ``rank``: what
+    parallel/mesh.shard_params cuts for that rank (no process group)."""
+    import numpy as np
+    from qwen3_tts_tpu_torch.parallel import mesh as pmesh
+    grid = np.empty((1, tp), dtype=object)
+    for r in range(tp):
+        grid[0, r] = pmesh.RankDevice(r, "cuda:0")
+    return pmesh.Mesh(grid, rank)
+
+
+def phase_tp_kernels(params, card: str) -> dict:
+    """K5, K4 and K1 at the shapes one rank of a tp mesh gives them (the
+    shapes phase_mesh's leg c runs), each against its plain version on
+    the same inputs, error 0 (the plain versions add up in the kernels'
+    order). K5 on the talker's heads split over tp = 2 and 4 (Hq 8 / Hkv
+    4, Hq 4 / Hkv 2, Dh 128) at the engine's row (B 1) and the batcher's
+    (B 4) positions, S 512 (the talker) and 16 (the code predictor), f32
+    and bf16. K4 at the same heads over a dp group's sub-pool (pages of
+    64, B 2 and 4, the batcher's positions), also against K5 over the
+    rows its table gathers. K1 on every int8 weight of the code
+    predictor's tp = 2 and 4 shards, each rank's as parallel/mesh.
+    shard_params cuts it from the random full-geometry weights, q|k|v and
+    gate|up grouped as the per-step path launches them, at M = 1, 2, 4
+    and 8 (a decode row, the 2-token prefill of one row, four decode
+    rows, the prefill of four): every case on qsplit. Returns the worst
+    error by kernel name."""
+    import torch
+    from qwen3_tts_tpu_torch.ops import quant
+    from qwen3_tts_tpu_torch.ops.kernels import qmatmul as tqm
+    from qwen3_tts_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention_cuda, decode_attention_plain)
+    from qwen3_tts_tpu_torch.ops.kernels.paged_attention import (
+        paged_attention_cuda, paged_attention_plain, paged_gather_kv)
+    from qwen3_tts_tpu_torch.parallel import mesh as pmesh
+    from qwen3_tts_tpu_torch.tools import bench_decode_attention as bda
+    g = torch.Generator(device="cuda").manual_seed(11)
+    worst = {"decode_attention": 0.0, "paged_attention": 0.0,
+             "qmatmul": 0.0}
+    k5_cases = ((512, 1, [37]), (512, 4, [0, 511, 200, 37]),
+                (512, 4, [20, 27, 33, 40]), (16, 1, [2]),
+                (16, 4, [2, 7, 15, 9]))
+    k4_cases = ((2, [575, 64]), (4, [0, 575, 300, 64]))
+    psz, MAXP = bda.PSZ, bda.MAXP
+    for tp in (2, 4):
+        Hq, Hkv = 16 // tp, 8 // tp
+        n5 = n4 = 0
+        for dtype in (torch.float32, torch.bfloat16):
+            for S, B, pl in k5_cases:
+                q, k, v = _attn_inputs(g, B, S, dtype, Hq, Hkv)
+                pos = torch.tensor(pl, device="cuda")
+                got = decode_attention_cuda(q, k, v, pos)
+                err, _ = _rel_err(got, decode_attention_plain(q, k, v, pos))
+                check(got.dtype == dtype and err == 0,
+                      f"K5 at tp={tp} (Hq {Hq}, Hkv {Hkv}) {dtype} S={S} "
+                      f"B={B} disagrees with its plain version ({err})")
+                worst["decode_attention"] = max(worst["decode_attention"],
+                                                err)
+                n5 += 1
+            for B, pl in k4_cases:
+                P = B * MAXP + 1
+                perm = torch.randperm(
+                    P - 1, generator=torch.Generator().manual_seed(B + tp))
+                table = (perm[:B * MAXP] + 1).reshape(B, MAXP).to(
+                    torch.int32).cuda()
+                pos = torch.tensor(pl, dtype=torch.int32, device="cuda")
+                q = torch.randn((B, Hq, 128), generator=g,
+                                device="cuda").to(dtype)
+                pool = torch.randn((2, P, psz, Hkv, 128), generator=g,
+                                   device="cuda").to(dtype)
+                got = paged_attention_cuda(q, pool[0], pool[1], table, pos)
+                kv = paged_gather_kv(pool, table)
+                err = max(_rel_err(got, paged_attention_plain(
+                    q, pool[0], pool[1], table, pos))[0],
+                    _rel_err(got, decode_attention_cuda(
+                        q, kv[0].contiguous(), kv[1].contiguous(),
+                        pos))[0])
+                check(got.dtype == dtype and err == 0,
+                      f"K4 at tp={tp} (Hq {Hq}, Hkv {Hkv}) {dtype} B={B} "
+                      f"disagrees with its plain version or K5 ({err})")
+                worst["paged_attention"] = max(worst["paged_attention"],
+                                               err)
+                n4 += 1
+        print(f"K5 decode_attention and K4 paged_attention at tp={tp} (Hq "
+              f"{Hq}, Hkv {Hkv}, Dh 128): {n5} K5 cases (S 512 and 16, B 1 "
+              f"and 4) and {n4} K4 cases (pages of {psz}, B 2 and 4), f32 "
+              f"and bf16, max_abs_err 0 against the plain versions")
+
+    cpq = quant.quantize_code_predictor(params["code_predictor"])
+    groups = (("q|k|v", ("q_proj", "k_proj", "v_proj")),
+              ("gate|up", ("gate_proj", "up_proj")), ("o", ("o_proj",)),
+              ("down", ("down_proj",)))
+    for tp in (2, 4):
+        shapes, n = {}, 0
+        for r in range(tp):
+            cp = pmesh.shard_params(_tp_mesh_of(tp, r),
+                                    {"code_predictor": cpq})["code_predictor"]
+            lay, heads = cp["layers"], cp["lm_heads"]
+            cases = [(f"layer {li} {name}",
+                      [(lay[w].q[li], lay[w].scale[li]) for w in names])
+                     for li in range(lay["q_proj"].q.shape[0])
+                     for name, names in groups]
+            cases += [(f"lm_head {i}", [(heads.q[i], heads.scale[i])])
+                      for i in range(heads.q.shape[0])]
+            for label, ws in cases:
+                K = ws[0][0].shape[0]
+                shapes[label.split(" ", 2)[-1] if label.startswith("layer")
+                       else "lm_head"] = (K, [q.shape[1] for q, _ in ws])
+                for M in (1, 2, 4, 8):
+                    x = torch.randn((M, K), generator=g,
+                                    device="cuda").to(torch.bfloat16)
+                    check(tqm.on_qsplit(M, K, [q.shape[1] for q, _ in ws]),
+                          f"K1 tp={tp} {label} M={M} is off qsplit")
+                    outs = tqm.qmatmul_group(x, ws)
+                    err = max(float((o - tqm.qmatmul_plain(x, q, s))
+                                    .abs().max())
+                              for o, (q, s) in zip(outs, ws))
+                    check(err == 0, f"K1 tp={tp} rank {r} {label} M={M} "
+                          f"disagrees with its plain version ({err})")
+                    worst["qmatmul"] = max(worst["qmatmul"], err)
+                    n += 1
+            del cp
+        print(f"K1 qmatmul on the code predictor's tp={tp} shards of "
+              f"every rank, (K, [N]) {shapes}: {n} cases at M 1, 2, 4, 8 on "
+              "qsplit, max_abs_err 0 against the plain version")
+    del cpq
+    print(f"tp shapes: worst errors {worst} [{card}]")
+    return worst
+
+
+def launch_counters() -> dict:
+    """The launch-counted wrappers of K1-K7 by name."""
+    from qwen3_tts_tpu_torch.ops.kernels.cp_decode import cp_decode_steps
+    from qwen3_tts_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention)
+    from qwen3_tts_tpu_torch.ops.kernels.kv_int8 import (
+        decode_attention_kv_int8)
+    from qwen3_tts_tpu_torch.ops.kernels.paged_attention import (
+        paged_decode_attention)
+    from qwen3_tts_tpu_torch.ops.kernels.qmatmul import (
+        qmatmul, qmatmul_qsplit, qmatmul_tile)
+    from qwen3_tts_tpu_torch.ops.kernels.talker_merged import (
+        talker_decode_step_merged, talker_decode_step_mergedvec)
+    from qwen3_tts_tpu_torch.ops.kernels.talker_step import (
+        talker_decode_step_fused)
+    return {"qmatmul": qmatmul, "qmatmul_qsplit": qmatmul_qsplit,
+            "qmatmul_tile": qmatmul_tile,
+            "talker_step": talker_decode_step_fused,
+            "cp_decode": cp_decode_steps,
+            "decode_attention": decode_attention,
+            "paged_attention": paged_decode_attention,
+            "decode_attention_kv_int8": decode_attention_kv_int8,
+            "talker_step_merged": talker_decode_step_merged,
+            "talker_step_mergedvec": talker_decode_step_mergedvec}
+
+
+def _mesh_serve(b, texts, max_tokens: int, streaming=()) -> dict:
+    """Serve ``texts`` through batcher b in lockstep (step() driven);
+    returns {i: (codes, audio, segments)} of the requests this rank
+    served, the scheduler steps and the wall seconds."""
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch.tools import bench_e2e
+    pieces = {i: [] for i in streaming}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    futs = [b.submit(*bench_e2e.encode_text(t), seed=i,
+                     max_tokens=max_tokens,
+                     on_chunk=pieces[i].append if i in pieces else None)
+            for i, t in enumerate(texts)]
+    steps = 0
+    while not all(f.done() for f in futs):
+        check(steps < 400, "mesh batcher: requests not done after 400 "
+              "steps")
+        b.step()
+        steps += 1
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    served = {}
+    for i, f in enumerate(futs):
+        codes, audio = f.result(timeout=0)
+        if codes is not None:
+            seg = (np.concatenate(pieces[i]) if pieces.get(i)
+                   else np.zeros((0,), np.int16))
+            served[i] = (codes, audio, seg)
+    return {"served": served, "steps": steps, "wall": wall}
+
+
+def _mesh_leg_a(mesh, counters: dict) -> dict:
+    """One-rank mesh in an NCCL world of one: the int8-cp engine and the
+    dense (K5) and paged (K4) batchers with make_mesh(1, 1) against the
+    same without a mesh, bit for bit."""
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch.config import TalkerConfig, TTSConfig
+    from qwen3_tts_tpu_torch.engine.engine import TTSEngine
+    from qwen3_tts_tpu_torch.io.weights import init_random_params
+    from qwen3_tts_tpu_torch.serve.batching import ContinuousBatcher
+    params = init_random_params(TTSConfig(), seed=0, dtype=torch.bfloat16,
+                                device="cuda")
+    grew = dict.fromkeys(counters, 0)
+    info = {"tokens": 0, "engine_s": 0.0, "loop_steps": 0,
+            "batcher_s": 0.0}
+
+    def counted(fn):
+        before = _launches(counters)
+        out = fn()
+        for k, v in _grew(before, counters).items():
+            grew[k] += v
+        return out
+
+    one = TTSEngine(TTSConfig(), params=params, quantize="int8-cp",
+                    device="cuda")
+    eng = TTSEngine(TTSConfig(), params=params, quantize="int8-cp",
+                    mesh=mesh)
+    for i, text in enumerate(TEXTS):
+        want = one.synthesize(text, seed=i, max_tokens=MESH_TOKENS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = counted(lambda: eng.synthesize(text, seed=i,
+                                             max_tokens=MESH_TOKENS))
+        torch.cuda.synchronize()
+        info["engine_s"] += time.perf_counter() - t0
+        info["tokens"] += got.n_tokens
+        check(np.array_equal(got.codes, want.codes)
+              and np.array_equal(got.audio_int16, want.audio_int16),
+              f"mesh leg a: engine request {i} differs from no mesh")
+    cfg = TTSConfig(talker=TalkerConfig(attention_impl="pallas"))
+    for paged in (False, True):
+        kw = dict(paged=True, page_size=64) if paged else {}
+        runs = []
+        for m in (None, mesh):
+            b = ContinuousBatcher(cfg, params, batch_size=4,
+                                  decode_chunk=16, device="cuda", mesh=m,
+                                  **kw)
+            run = (counted if m is not None else (lambda f: f()))(
+                lambda: _mesh_serve(b, BATCH_TEXTS, MESH_TOKENS,
+                                    MESH_STREAMING))
+            runs.append(run["served"])
+            if m is not None:
+                info["batcher_s"] += run["wall"]
+                info["loop_steps"] += run["steps"] * b.decode_chunk
+            del b
+        for i, (c, a, s) in runs[0].items():
+            c1, a1, s1 = runs[1][i]
+            check(np.array_equal(c, c1) and np.array_equal(a, a1)
+                  and np.array_equal(s, s1),
+                  f"mesh leg a: {'paged' if paged else 'dense'} batcher "
+                  f"request {i} differs from no mesh")
+    return {"launches": grew, **info}
+
+
+def _mesh_leg_b(mesh, counters: dict, out: dict) -> dict:
+    """dp = 2 x tp = 1: the dense (K5) and paged (K4) batchers on this
+    rank's half of the slots; the served requests go to ``out``."""
+    import torch
+    from qwen3_tts_tpu_torch.config import TalkerConfig, TTSConfig
+    from qwen3_tts_tpu_torch.io.weights import init_random_params
+    from qwen3_tts_tpu_torch.serve.batching import ContinuousBatcher
+    params = init_random_params(TTSConfig(), seed=0, dtype=torch.bfloat16,
+                               device="cuda")
+    cfg = TTSConfig(talker=TalkerConfig(attention_impl="pallas"))
+    info = {"loop_steps": 0, "batcher_s": 0.0}
+    for fn in counters.values():
+        fn.launches = 0
+    for paged in (False, True):
+        kw = dict(paged=True, page_size=64) if paged else {}
+        b = ContinuousBatcher(cfg, params, batch_size=4, decode_chunk=16,
+                              mesh=mesh, **kw)
+        run = _mesh_serve(b, BATCH_TEXTS, 48, MESH_STREAMING)
+        tag = "paged" if paged else "dense"
+        for i, (c, a, s) in run["served"].items():
+            out[f"{tag}_codes{i}"], out[f"{tag}_audio{i}"] = c, a
+            out[f"{tag}_segments{i}"] = s
+        out[f"{tag}_owned"] = sorted(run["served"])
+        info["batcher_s"] += run["wall"]
+        info["loop_steps"] += run["steps"] * b.decode_chunk
+        del b
+    return {"launches": _launches(counters), **info}
+
+
+def _first_step(eng, text: str, seed: int):
+    """The talker hidden the first decode step reads (after the prefill)
+    and its codec logits, f32 on the host."""
+    from qwen3_tts_tpu_torch.models import talker as tk
+    ids, n = eng._encode_text(text)
+    st = eng._prefill(ids, n, seed, MESH_TP_TOKENS)
+    logits = tk.codec_logits(eng._tp, st.hidden, eng.mesh)
+    return st.hidden.float().cpu().numpy(), logits.float().cpu().numpy()
+
+
+PROBE_KEYS = ("talker_hidden", "talker_logits", "paged_hidden",
+              "cp_logits0", "cp_logits1")
+
+
+def _probe_inputs(eng, text: str, seed: int) -> dict:
+    """The state a decode-step probe starts from, on one rank without a
+    mesh: the request's post-prefill talker hidden and KV cache and its
+    position, code_0 (the argmax of the first logits) with its
+    codec_embedding as the talker's feedback and the code predictor's
+    second input, and group 1's token (the argmax of the code
+    predictor's first logits), as f32 numpy."""
+    import torch
+    ids, n = eng._encode_text(text)
+    st = eng._prefill(ids, n, seed, MESH_TP_TOKENS)
+    code0 = _decode_probe(eng, {"hidden": st.hidden}, None, "code0")
+    c0e = eng._tp["codec_embedding"][code0]
+    tok0 = _decode_probe(eng, {"hidden": st.hidden, "c0e": c0e}, None,
+                         "tok0")
+    return {k: v.float().cpu().numpy() for k, v in (
+        ("hidden", st.hidden), ("kv", st.kv), ("pos", st.pos),
+        ("c0e", c0e), ("tok0", tok0))}
+
+
+def _decode_probe(eng, inp: dict, mesh, only: str = "") -> dict:
+    """One decode step of eng's weights from the state ``inp`` (tensors
+    on the card; the KV whole, cut here to the rank's kv heads): the
+    talker's step on the dense cache (K5 under attention_impl="pallas")
+    and on the same rows in pages of 64 (K4), each with its codec
+    logits, and the code predictor's 2-token prefill and first AR step
+    (its int8 products on K1), each with its lm_head logits; all under
+    ``mesh`` (None: one rank). ``only`` "code0" / "tok0": the argmax of
+    the talker's / the code predictor's first logits alone."""
+    import torch
+    from qwen3_tts_tpu_torch.models import code_predictor as tcp
+    from qwen3_tts_tpu_torch.models import talker as tk
+    from qwen3_tts_tpu_torch.models import transformer as tfm
+    from qwen3_tts_tpu_torch.ops import quant
+    from qwen3_tts_tpu_torch.parallel import mesh as pmesh
+    tcfg, ccfg = eng.cfg.talker, eng.cfg.code_predictor
+    tp, cpp = eng._tp, eng._cpp
+    hidden = inp["hidden"]
+    if only == "code0":
+        return tk.codec_logits(tp, hidden, mesh).argmax(-1)
+    out = {}
+    dev = hidden.device
+    # code predictor: predict_codes' prefill and first step
+    geo = tfm.geometry_of(ccfg, mesh)
+    kvc = tfm.init_kv_cache(geo, 1, ccfg.max_seq_len, dtype=hidden.dtype,
+                            device=dev)
+    x2 = tcp._project_in(cpp, torch.stack([hidden, inp["c0e"]], dim=1),
+                         mesh)
+    mask = tfm.causal_mask(1, 2, torch.full((1,), 2, device=dev))
+    h, kvc = tfm.forward_prefill_unrolled(
+        cpp.get("layers_list") or tfm._layers(cpp["layers"]), x2,
+        torch.arange(2, device=dev)[None], mask, geo, kvc, mesh)
+    h = tfm.rms_norm(h, cpp["final_norm"], ccfg.rms_norm_eps)[:, -1]
+    out["cp_logits0"] = pmesh.tp_all_gather(
+        quant.matmul(h, cpp["lm_heads"][0]), mesh)
+    if only == "tok0":
+        return out["cp_logits0"].argmax(-1)
+    emb = tcp._project_in(cpp, cpp["codec_embs"][0][inp["tok0"]], mesh)
+    h, _ = tfm.decode_step(cpp["layers"], emb,
+                           torch.full((1,), 2, device=dev), kvc, geo, mesh)
+    h = tfm.rms_norm(h, cpp["final_norm"], ccfg.rms_norm_eps)
+    out["cp_logits1"] = pmesh.tp_all_gather(
+        quant.matmul(h, cpp["lm_heads"][1]), mesh)
+    # talker: dense and paged
+    kv = inp["kv"]
+    if mesh is not None:
+        kv = pmesh.shard_leaf(kv, 4, mesh)          # (L, 2, B, S, Hkv, Dh)
+    h, _ = tk.decode_step(tp, inp["c0e"], inp["pos"], kv.clone(), tcfg,
+                          mesh=mesh)
+    out["talker_hidden"] = h
+    out["talker_logits"] = tk.codec_logits(tp, h, mesh)
+    L, _, _, S, H, D = kv.shape
+    pool = kv.new_zeros((L, 2, S // 64 + 1, 64, H, D))
+    pool[:, :, 1:] = kv[:, :, 0].reshape(L, 2, S // 64, 64, H, D)
+    paged = tfm.PagedKV(
+        pool=pool,
+        table=torch.arange(1, S // 64 + 1, dtype=torch.int32,
+                           device=dev)[None],
+        capacity=torch.full((1,), S, dtype=torch.int32, device=dev))
+    h, _ = tk.decode_step(tp, inp["c0e"], inp["pos"], paged, tcfg,
+                          mesh=mesh)
+    out["paged_hidden"] = h
+    return {k: v.float().cpu().numpy() for k, v in out.items()}
+
+
+def _mesh_leg_c(mesh, counters: dict, out: dict, out_dir: str) -> dict:
+    """dp = 1 x tp = 2: the int8-cp engine with K5 decode attention on the
+    three texts (the first step's hidden and logits, codes and audio),
+    the decode-step probe from the one-rank state, and the paged batcher
+    (K4 on 4 local kv heads) on three requests; every array goes to
+    ``out``."""
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch.config import TalkerConfig, TTSConfig
+    from qwen3_tts_tpu_torch.engine.engine import TTSEngine
+    from qwen3_tts_tpu_torch.io.weights import init_random_params
+    from qwen3_tts_tpu_torch.serve.batching import ContinuousBatcher
+    params = init_random_params(TTSConfig(), seed=0, dtype=torch.bfloat16,
+                                device="cuda")
+    cfg = TTSConfig(talker=TalkerConfig(attention_impl="pallas"))
+    eng = TTSEngine(cfg, params=params, quantize="int8-cp", mesh=mesh)
+    info = {"tokens": 0, "engine_s": 0.0, "loop_steps": 0,
+            "batcher_s": 0.0}
+    for i, text in enumerate(TEXTS):
+        out[f"hidden{i}"], out[f"logits{i}"] = _first_step(eng, text, i)
+    # one decode step from the one-rank engine's state (phase_mesh wrote
+    # it beside this leg's directory)
+    with np.load(os.path.join(os.path.dirname(out_dir),
+                              "c_probe.npz")) as z:
+        kinds = {"pos": torch.int32, "tok0": torch.long}
+        inp = {k: torch.from_numpy(z[k]).cuda().to(
+            kinds.get(k, torch.bfloat16)) for k in z.files}
+    for k, v in _decode_probe(eng, inp, mesh).items():
+        out[f"probe_{k}"] = v
+    for fn in counters.values():
+        fn.launches = 0
+    for i, text in enumerate(TEXTS):
+        eng._prefix_cache.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = eng.synthesize(text, seed=i, max_tokens=MESH_TP_TOKENS)
+        torch.cuda.synchronize()
+        info["engine_s"] += time.perf_counter() - t0
+        info["tokens"] += res.n_tokens
+        out[f"codes{i}"], out[f"audio{i}"] = res.codes, res.audio_int16
+    b = ContinuousBatcher(cfg, params, batch_size=4, decode_chunk=16,
+                          mesh=mesh, paged=True, page_size=64)
+    run = _mesh_serve(b, BATCH_TEXTS[:MESH_TP_TEXTS], MESH_TP_TOKENS)
+    info["batcher_s"] += run["wall"]
+    info["loop_steps"] += run["steps"] * b.decode_chunk
+    # three requests in four slots: slot i keeps request i's codes on
+    # every tp rank, also where the rank serves none
+    n = b._state.n_codes.cpu().numpy()
+    codes = b._state.codes.cpu().numpy()
+    for i in range(MESH_TP_TEXTS):
+        out[f"paged_codes{i}"] = codes[i, :n[i]]
+    return {"launches": _launches(counters), **info}
+
+
+def mesh_rank(leg: str, out_dir: str) -> int:
+    """One rank of phase_mesh's leg ``leg`` (a: one rank in an NCCL world
+    of one; b: dp 2 x tp 1 and c: dp 1 x tp 2, two ranks on cuda:0 over
+    gloo, their world from the QWEN3_TTS_* variables). Writes
+    out<rank>.npz and out<rank>.json to ``out_dir``; exits 1 on any
+    failure, leaving the world at once so that its peer fails too."""
+    import traceback
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, ROOT)
+    from qwen3_tts_tpu_torch.ops.kernels import _build
+    from qwen3_tts_tpu_torch.parallel import mesh as pmesh
+    from qwen3_tts_tpu_torch.parallel import multihost as mh
+    rank = int(os.environ.get("QWEN3_TTS_PROCESS_ID", "0"))
+    try:
+        _build.load()
+        counters = launch_counters()
+        t0 = time.perf_counter()
+        if leg == "a":
+            torch.cuda.set_device(0)
+            dist.init_process_group(
+                "cpu:gloo,cuda:nccl", rank=0, world_size=1,
+                store=dist.FileStore(os.path.join(out_dir, "store"), 1))
+            mesh = pmesh.make_mesh(1, 1, ["cuda:0"])
+        else:
+            check(mh.init_distributed(backend="gloo", device="cuda:0"),
+                  "mesh rank: no world")
+            dp, tp = (2, 1) if leg == "b" else (1, 2)
+            mesh = pmesh.make_mesh(dp, tp, ["cuda:0", "cuda:0"])
+        arrays = {}
+        with torch.inference_mode():
+            if leg == "a":
+                info = _mesh_leg_a(mesh, counters)
+            elif leg == "b":
+                info = _mesh_leg_b(mesh, counters, arrays)
+            else:
+                info = _mesh_leg_c(mesh, counters, arrays, out_dir)
+        info.update(seconds=time.perf_counter() - t0,
+                    coords=[mesh.dp_index, mesh.tp_index])
+        owned = {k: arrays.pop(k) for k in list(arrays)
+                 if k.endswith("_owned")}
+        info.update(owned)
+        np.savez(os.path.join(out_dir, f"out{rank}.npz"), **arrays)
+        with open(os.path.join(out_dir, f"out{rank}.json"), "w") as f:
+            json.dump(info, f)
+        mh.barrier("mesh_done", timeout_s=MESH_RANK_TIMEOUT)
+    except BaseException:
+        traceback.print_exc()
+        mh.shutdown_distributed()
+        return 1
+    mh.shutdown_distributed()
+    return 0
+
+
+def _run_mesh_leg(leg: str, n: int, root: str) -> list:
+    """Start leg ``leg``'s n ranks (this script with --mesh-rank) and wait
+    for them under MESH_RANK_TIMEOUT; any failing rank fails the phase
+    and ends the others. Returns each rank's (json info, npz arrays)."""
+    import numpy as np
+    from qwen3_tts_tpu_torch.parallel import multihost as mh
+    d = os.path.join(root, leg)
+    os.makedirs(d)
+    try:
+        exits = mh.spawn_ranks(
+            [sys.executable, os.path.abspath(__file__), "--mesh-rank", leg,
+             d], n, d, timeout=MESH_RANK_TIMEOUT)
+    except TimeoutError as e:
+        check(False, f"mesh leg {leg}: {e}")
+    check(all(e.code == 0 for e in exits),
+          f"mesh leg {leg} failed:\n" + mh.format_exits(exits))
+    outs = []
+    for r in range(n):
+        with open(os.path.join(d, f"out{r}.json")) as f:
+            info = json.load(f)
+        with np.load(os.path.join(d, f"out{r}.npz")) as z:
+            outs.append((info, {k: z[k] for k in z.files}))
+    return outs
+
+
+def _cosine(a, b) -> float:
+    import numpy as np
+    a, b = np.asarray(a, np.float64).ravel(), np.asarray(b, np.float64).ravel()
+    return float(a @ b / (np.linalg.norm(a) * np.linalg.norm(b)))
+
+
+def _leg_line(leg: str, label: str, infos: list, card: str,
+              totals: dict) -> dict:
+    launches = {k: sum(i["launches"][k] for i in infos)
+                for k in infos[0]["launches"]}
+    for k, v in launches.items():
+        totals[k] = totals.get(k, 0) + v
+    seconds = max(i["seconds"] for i in infos)
+    parts = [f"mesh leg {leg} ({label}): {seconds:.1f} s a rank"]
+    i0 = infos[0]
+    if i0.get("tokens"):
+        parts.append(f"engine {1000 * i0['engine_s'] / i0['tokens']:.2f} "
+                     f"ms a token ({i0['tokens']} tokens)")
+    if i0.get("loop_steps"):
+        parts.append(f"batcher {1000 * i0['batcher_s'] / i0['loop_steps']:.2f}"
+                     f" ms a loop step ({i0['loop_steps']} steps)")
+    parts.append(f"launches { {k: v for k, v in launches.items() if v} }")
+    print("; ".join(parts) + f" [{card}]")
+    return launches
+
+
+def phase_mesh(params, card: str) -> dict:
+    """The dp x tp tier at full geometry, its ranks subprocesses (the
+    kernels built by this process before any rank starts), before any
+    profiler session. Two ranks on one card check correctness only:
+    their times are no multi-GPU speed figure. Returns the phase's
+    launches by kernel, summed over its ranks."""
+    import shutil
+    import tempfile
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch.config import TalkerConfig, TTSConfig
+    from qwen3_tts_tpu_torch.engine.engine import TTSEngine
+    from qwen3_tts_tpu_torch.serve.batching import ContinuousBatcher
+    t_phase = time.perf_counter()
+    totals: dict = {}
+    root = tempfile.mkdtemp(prefix="q3mesh_")
+    try:
+        # a: one rank in an NCCL world of one, bit-equal to no mesh
+        (info_a, _), = _run_mesh_leg("a", 1, root)
+        la = _leg_line("a", "make_mesh(1, 1) over NCCL, bit-equal to no "
+                       "mesh", [info_a], card, totals)
+        for k in ("qmatmul", "cp_decode", "decode_attention",
+                  "paged_attention"):
+            check(la[k] > 0, f"mesh leg a: {k} was not launched")
+
+        # b: dp 2 x tp 1 against the one-device batchers, bit for bit
+        cfg = TTSConfig(talker=TalkerConfig(attention_impl="pallas"))
+        want = {}
+        for paged in (False, True):
+            kw = dict(paged=True, page_size=64) if paged else {}
+            b = ContinuousBatcher(cfg, params, batch_size=4,
+                                  decode_chunk=16, device="cuda", **kw)
+            want[paged] = _mesh_serve(b, BATCH_TEXTS, 48,
+                                      MESH_STREAMING)["served"]
+            del b
+        outs = _run_mesh_leg("b", 2, root)
+        for paged, tag in ((False, "dense"), (True, "paged")):
+            owned = [o[0][f"{tag}_owned"] for o in outs]
+            check(sorted(owned[0] + owned[1]) == list(range(
+                len(BATCH_TEXTS))) and not set(owned[0]) & set(owned[1]),
+                f"mesh leg b: {tag} served sets {owned} do not partition "
+                "the requests")
+            for _, arr in outs:
+                for i in [int(k[len(tag) + 6:]) for k in arr
+                          if k.startswith(f"{tag}_codes")]:
+                    c, a, s = want[paged][i]
+                    check(np.array_equal(arr[f"{tag}_codes{i}"], c)
+                          and np.array_equal(arr[f"{tag}_audio{i}"], a)
+                          and np.array_equal(arr[f"{tag}_segments{i}"], s),
+                          f"mesh leg b: {tag} request {i} differs from the "
+                          "one-device batcher")
+            print(f"mesh leg b: {tag} batcher, ranks served {owned}, every "
+                  "request's codes, audio and stream segments equal to the "
+                  f"one-device batcher's bit for bit [{card}]")
+        lb = _leg_line("b", "dp2 x tp1, two ranks on one card over gloo",
+                       [o[0] for o in outs], card, totals)
+        for k in ("qmatmul", "cp_decode", "decode_attention",
+                  "paged_attention"):
+            check(lb[k] > 0, f"mesh leg b: {k} was not launched")
+
+        # c: dp 1 x tp 2 against the one-rank int8-cp engine
+        one = TTSEngine(cfg, params=params, quantize="int8-cp",
+                        device="cuda")
+        ref = {}
+        for i, text in enumerate(TEXTS):
+            ref[f"hidden{i}"], ref[f"logits{i}"] = _first_step(one, text, i)
+            one._prefix_cache.clear()
+            ref[f"codes{i}"] = one.synthesize(
+                text, seed=i, max_tokens=MESH_TP_TOKENS).codes
+        with torch.inference_mode():
+            probe = _probe_inputs(one, TEXTS[0], 0)
+            np.savez(os.path.join(root, "c_probe.npz"), **probe)
+            kinds = {"pos": torch.int32, "tok0": torch.long}
+            ref_probe = _decode_probe(one, {
+                k: torch.from_numpy(v).cuda().to(kinds.get(k, torch.bfloat16))
+                for k, v in probe.items()}, None)
+        del one
+        outs = _run_mesh_leg("c", 2, root)
+        (_, r0), (_, r1) = outs
+        # the same state, one decode step: K5 and K4 on the rank's kv
+        # heads and K1 on its code predictor shards against one rank
+        cos = {}
+        for k in PROBE_KEYS:
+            check(np.array_equal(r0[f"probe_{k}"], r1[f"probe_{k}"]),
+                  f"mesh leg c: the tp ranks' probe {k} differs")
+            cos[k] = _cosine(r0[f"probe_{k}"], ref_probe[k])
+        print(f"mesh leg c: one decode step from the one-rank state "
+              f"(text 0, pos {int(probe['pos'][0])}), tp 2 against one rank, "
+              f"cosine {', '.join(f'{k} {v:.6f}' for k, v in cos.items())}; "
+              f"equal on both ranks [{card}]")
+        check(min(cos.values()) >= 0.999,
+              f"mesh leg c: a decode step under tp is off one rank's: {cos}")
+        for i in range(len(TEXTS)):
+            check(np.array_equal(r0[f"codes{i}"], r1[f"codes{i}"])
+                  and np.array_equal(r0[f"audio{i}"], r1[f"audio{i}"]),
+                  f"mesh leg c: the tp ranks' request {i} differs")
+            n = len(r0[f"codes{i}"])
+            check(1 <= n <= MESH_TP_TOKENS,
+                  f"mesh leg c: request {i} gave {n} tokens")
+            ch, cl = (_cosine(r0[f"hidden{i}"], ref[f"hidden{i}"]),
+                      _cosine(r0[f"logits{i}"], ref[f"logits{i}"]))
+            w = ref[f"codes{i}"]
+            m = min(n, len(w))
+            share = (float((r0[f"codes{i}"][:m] == w[:m]).mean())
+                     if m else 0.0)
+            print(f"mesh leg c: request {i}: {n} tokens (one rank {len(w)})"
+                  f", first step cosine hidden {ch:.6f} logits {cl:.6f}, "
+                  f"equal codes {share:.4f} of the first {m} x 16 (bf16 "
+                  f"in another order; not bounded) [{card}]")
+            check(ch >= 0.999 and cl >= 0.999,
+                  f"mesh leg c: request {i} cosine {ch} / {cl} < 0.999")
+        for i in range(MESH_TP_TEXTS):
+            check(np.array_equal(r0[f"paged_codes{i}"],
+                                 r1[f"paged_codes{i}"])
+                  and len(r0[f"paged_codes{i}"]) >= 1,
+                  f"mesh leg c: paged request {i} differs between ranks")
+        print(f"mesh leg c: paged batcher, {MESH_TP_TEXTS} requests, codes "
+              f"equal on both tp ranks [{card}]")
+        lc = _leg_line("c", "dp1 x tp2, two ranks on one card over gloo",
+                       [o[0] for o in outs], card, totals)
+        for k in ("qmatmul", "decode_attention", "paged_attention"):
+            check(lc[k] > 0, f"mesh leg c: {k} was not launched")
+        check(lc["cp_decode"] == 0 and lc["talker_step"] == 0,
+              "mesh leg c: K2 or K3 launched under tp")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.synchronize()
+    print(f"mesh phase: {time.perf_counter() - t_phase:.1f} s; two ranks "
+          "on one card check correctness only, not multi-GPU speed; "
+          f"launches {totals} [{card}]")
+    return totals
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU",
@@ -2635,6 +3354,8 @@ def main() -> int:
     sys.path.insert(0, ROOT)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        return mesh_rank(sys.argv[2], sys.argv[3])
 
     card = card_line()
     print(f"card: {card}")
@@ -2649,19 +3370,6 @@ def main() -> int:
     from qwen3_tts_tpu_torch.config import TTSConfig
     from qwen3_tts_tpu_torch.engine.engine import TTSEngine
     from qwen3_tts_tpu_torch.io.weights import init_random_params
-    from qwen3_tts_tpu_torch.ops.kernels.cp_decode import cp_decode_steps
-    from qwen3_tts_tpu_torch.ops.kernels.decode_attention import (
-        decode_attention)
-    from qwen3_tts_tpu_torch.ops.kernels.kv_int8 import (
-        decode_attention_kv_int8)
-    from qwen3_tts_tpu_torch.ops.kernels.paged_attention import (
-        paged_decode_attention)
-    from qwen3_tts_tpu_torch.ops.kernels.qmatmul import (
-        qmatmul, qmatmul_qsplit, qmatmul_tile)
-    from qwen3_tts_tpu_torch.ops.kernels.talker_merged import (
-        talker_decode_step_merged, talker_decode_step_mergedvec)
-    from qwen3_tts_tpu_torch.ops.kernels.talker_step import (
-        talker_decode_step_fused)
 
     t0 = time.perf_counter()
     eng = TTSEngine(TTSConfig(), quantize="int8", device="cuda", seed=0)
@@ -2675,15 +3383,7 @@ def main() -> int:
                k5, phase_paged_attention(card),
                phase_kv_int8(card, k5["shapes"])]
     phase_prefill_tile(eng, card)
-    counters = {"qmatmul": qmatmul, "qmatmul_qsplit": qmatmul_qsplit,
-                "qmatmul_tile": qmatmul_tile,
-                "talker_step": talker_decode_step_fused,
-                "cp_decode": cp_decode_steps,
-                "decode_attention": decode_attention,
-                "paged_attention": paged_decode_attention,
-                "decode_attention_kv_int8": decode_attention_kv_int8,
-                "talker_step_merged": talker_decode_step_merged,
-                "talker_step_mergedvec": talker_decode_step_mergedvec}
+    counters = launch_counters()
     # the int8-KV probe's steps and the streaming phases are timed before
     # the first profiler session
     kv8 = phase_bench_kv_int8(card, counters)
@@ -2695,6 +3395,8 @@ def main() -> int:
     phase_engine_surface(eng, params, card, counters)
     phase_checkpoint(eng, params, card, counters)
     phase_serving(eng, params, card, counters)
+    tp_err = phase_tp_kernels(params, card)
+    mesh = phase_mesh(params, card)
     by_name = {k["name"]: k for k in kernels}
     phase_kernel_profiles(eng, card, by_name["talker_step"],
                           by_name["cp_decode"])
@@ -2711,6 +3413,11 @@ def main() -> int:
     phase_cli(card)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k["launches_mesh"] = mesh.get(k["name"], 0)
+        if k["name"] in tp_err:
+            k["max_abs_err_tp_shards"] = tp_err[k["name"]]
+    print(f"chip_smoke: every phase passed in "
+          f"{time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -2,13 +2,17 @@
 
     python -m qwen3_tts_tpu_torch.cli "text" --output out.wav --seed 0 \
         [--model_dir DIR] [--quantize none|int8|int8-cp] [--streaming] \
-        [--long] [--prompt_dir DIR] [--profile DIR] [--tiny] [--device cuda]
+        [--long] [--prompt_dir DIR] [--profile DIR] [--tiny] [--device cuda] \
+        [--tp N]
 
-The flags of the JAX package's CLI (qwen3_tts_tpu/cli.py) but ``--tp``,
-with ``--device`` for its ``--platform``; bf16 unless ``--dtype
-float32``. ``--model_dir`` loads a checkpoint (a ``params.npz`` of either
-package, or an HF directory with ``model.safetensors``) and its geometry;
-without it the weights are random from ``--seed``. ``--streaming``
+The flags of the JAX package's CLI (qwen3_tts_tpu/cli.py), with
+``--device`` for its ``--platform``; bf16 unless ``--dtype float32``.
+``--tp N`` shards the engine over N ranks (parallel/mesh.py): the command
+starts them itself, rank r on ``cuda:r`` (``cpu`` with ``--device cpu``),
+and rank 0 prints and writes the WAV. ``--model_dir`` loads a
+checkpoint (a ``params.npz`` of either package, or an HF directory with
+``model.safetensors``) and its geometry; without it the weights are
+random from ``--seed``. ``--streaming``
 synthesizes in streaming mode (the engine's head chunks and the
 incremental vocoder stream); ``--long`` splits a paragraph into sentence
 pieces (TTSEngine.synthesize_long); ``--prompt_dir`` clones the voice of
@@ -22,11 +26,16 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
+import tempfile
 
 from qwen3_tts_tpu_torch.config import SUPPORTED_LANGUAGES
 
 DEFAULT_TEXT = "Привет, как дела? Сегодня хорошая погода для прогулки."
+# --tp N: the ranks' run is ended past this (a hung rank would otherwise
+# hold its peers until their collectives time out)
+RANK_TIMEOUT_S = 3600.0
 
 
 def parser() -> argparse.ArgumentParser:
@@ -68,15 +77,95 @@ def parser() -> argparse.ArgumentParser:
                          "and speech_tokenizer/); random weights if "
                          "omitted")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--tp", type=int, default=0, metavar="N",
+                    help="tensor parallelism over N ranks, one a device "
+                         "(weights column/row-parallel, KV over kv heads; "
+                         "parallel/mesh.py), started by this command. Not "
+                         "with --quantize int8 (the fused int8 talker "
+                         "layout is single-device; int8-cp shards). 0 "
+                         "(default): no mesh; 1: a one-rank mesh. The ranks "
+                         "are ended after an hour")
     return ap
+
+
+def _run_ranks(n: int, argv) -> int:
+    """Start the N ranks of ``--tp N`` (this command again, in a world
+    whose file store is in a temporary directory) and wait for them, at
+    most RANK_TIMEOUT_S seconds. Rank 0 keeps the standard output; a
+    failing rank ends the others, and the output of every rank that did
+    not exit 0 goes to stderr. Returns the failing rank's exit code (1 on
+    a timeout or a signal), else 0."""
+    from qwen3_tts_tpu_torch.parallel import multihost as mh
+    argv = list(sys.argv[1:] if argv is None else argv)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.environ.get("PYTHONPATH")
+    # ranks on one host's CPU share its cores
+    env = {"PYTHONPATH": root + (os.pathsep + path if path else ""),
+           "OMP_NUM_THREADS": os.environ.get(
+               "OMP_NUM_THREADS", str(max(1, os.cpu_count() // n)))}
+    with tempfile.TemporaryDirectory(prefix="qwen3_tts_tp_") as d:
+        try:
+            exits = mh.spawn_ranks(
+                [sys.executable, "-m", "qwen3_tts_tpu_torch.cli", *argv], n,
+                d, timeout=RANK_TIMEOUT_S, env=env, keep_rank0_output=True)
+        except TimeoutError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+    failed = [e for e in exits if e.code]
+    if not failed:
+        return 0
+    # the ranks this process ended exit on a signal (a negative code)
+    first = next((e for e in failed if e.code > 0), failed[0])
+    print(f"error: --tp {n}: rank {first.rank} exited {first.code}\n"
+          + mh.format_exits(failed), file=sys.stderr)
+    return first.code if first.code > 0 else 1
 
 
 def main(argv=None) -> int:
     args = parser().parse_args(argv)
     text = args.text or args.text_flag or DEFAULT_TEXT
+    if args.tp > 0 and args.quantize == "int8":
+        print("error: --tp requires --quantize int8-cp or none (the fused "
+              "int8 talker layout is single-device)", file=sys.stderr)
+        return 1
 
-    import os
+    import torch
 
+    from qwen3_tts_tpu_torch.parallel import multihost as mh
+
+    mesh, rank0 = None, True
+    if args.tp > 0:
+        try:
+            if mh.init_distributed(
+                    device="cpu" if args.device == "cpu" else None):
+                mesh = mh.make_serving_mesh(tp=args.tp, dp=1)
+                rank0 = mesh.rank == 0
+            elif args.tp > 1:
+                if args.device != "cpu":
+                    # every rank needs a card of its own (the first N of
+                    # this host's): fail here, not in N processes
+                    cards = [f"cuda:{i}"
+                             for i in range(torch.cuda.device_count())]
+                    mh.make_serving_mesh(tp=args.tp, dp=1,
+                                         devices=cards[:args.tp])
+                return _run_ranks(args.tp, argv)
+            else:
+                mesh = mh.make_serving_mesh(tp=1, dp=1,
+                                            devices=[args.device])
+        except ValueError as e:
+            print(f"error: {e}", file=sys.stderr)
+            mh.shutdown_distributed()
+            return 1
+        if rank0:
+            print(f"Mesh: tp={args.tp} over "
+                  f"{[d.device for d in mesh.devices.flat]}")
+    try:
+        return _synthesize(args, text, mesh, rank0)
+    finally:
+        mh.shutdown_distributed()
+
+
+def _synthesize(args, text: str, mesh, rank0: bool) -> int:
     import torch
 
     from qwen3_tts_tpu_torch.config import TTSConfig, tiny_tts_config
@@ -114,25 +203,28 @@ def main(argv=None) -> int:
         sampling = dataclasses.replace(sampling, top_k=args.top_k)
     cfg = dataclasses.replace(cfg, sampling=sampling)
 
-    print(f"Text: '{text}'")
-    print(f"Language: {args.language}")
+    say = print if rank0 else (lambda *a, **k: None)
+    output = args.output if rank0 else None
+    say(f"Text: '{text}'")
+    say(f"Language: {args.language}")
     eng = tengine.TTSEngine(
         cfg=cfg, model_dir=args.model_dir, seed=args.seed,
         device=args.device, dtype=dtype, params=preloaded,
-        quantize=None if args.quantize == "none" else args.quantize)
+        quantize=None if args.quantize == "none" else args.quantize,
+        mesh=mesh)
     try:
-        with device_trace(args.profile, eng.device):
+        with device_trace(args.profile if rank0 else None, eng.device):
             if args.long:
                 if args.streaming:
-                    print("note: --long emits audio per finished "
-                          "sentence; --streaming's intra-sentence head "
-                          "schedule does not apply")
+                    say("note: --long emits audio per finished "
+                        "sentence; --streaming's intra-sentence head "
+                        "schedule does not apply")
                 res = eng.synthesize_long(text, language=args.language,
-                                          output=args.output, seed=args.seed,
+                                          output=output, seed=args.seed,
                                           prompt_dir=args.prompt_dir)
             else:
                 res = eng.synthesize(text, language=args.language,
-                                     output=args.output, seed=args.seed,
+                                     output=output, seed=args.seed,
                                      streaming=args.streaming,
                                      prompt_dir=args.prompt_dir)
     except ValueError as e:
@@ -141,14 +233,14 @@ def main(argv=None) -> int:
         print(f"error: {e}", file=sys.stderr)
         return 1
     if res.n_tokens == 0:
-        print("No tokens generated!")
+        say("No tokens generated!")
         return 1
     stages = ", ".join(f"{k}={v * 1000:.1f}ms" for k, v in res.timings.items())
-    print(f"{res.n_tokens} tokens, {res.audio_seconds:.2f} s audio -> "
-          f"{args.output} | {stages} | total={res.total_seconds:.3f}s "
-          f"RTF={res.rtf:.4f} ({eng.device})")
+    say(f"{res.n_tokens} tokens, {res.audio_seconds:.2f} s audio -> "
+        f"{args.output} | {stages} | total={res.total_seconds:.3f}s "
+        f"RTF={res.rtf:.4f} ({eng.device})")
     if res.first_audio_seconds is not None:
-        print(f"First audio: {res.first_audio_seconds:.3f}s")
+        say(f"First audio: {res.first_audio_seconds:.3f}s")
     return 0
 
 

@@ -23,7 +23,9 @@ samples reach the host. With ``quantize="int8"`` (or int8 trees in
 products), K2 (code predictor steps) and K3 (talker decode step, up to 8
 rows); ``quantize="int8-cp"`` keeps the talker dense (K1 and K2 only);
 with ``TalkerConfig(attention_impl="pallas")`` a per-layer talker step's
-attention runs on K5.
+attention runs on K5. ``mesh`` shards the engine over a tp group
+(parallel/mesh.py): every rank of the group calls it with the same
+arguments and returns the same result.
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from qwen3_tts_tpu_torch.models import vocoder_stream as vstream
 from qwen3_tts_tpu_torch.models.code_predictor import CodePredictor
 from qwen3_tts_tpu_torch.ops import quant
 from qwen3_tts_tpu_torch.ops import sampling as smp
+from qwen3_tts_tpu_torch.parallel import mesh as pmesh
 from qwen3_tts_tpu_torch.utils.profiling import stage as _stage
 from qwen3_tts_tpu_torch.utils.text import piece_token_budget, split_for_budget
 
@@ -110,10 +113,11 @@ def vocode(vp: Dict, codes: np.ndarray, cfg, device) -> np.ndarray:
 
 
 class TTSEngine:
-    """Single-request TTS engine on one device. ``model_dir`` loads a
-    checkpoint (io/weights.load_params: a ``params.npz`` of either
-    package, or an HF directory with ``model.safetensors`` and
-    ``speech_tokenizer/``), its geometry too when ``cfg`` is None, and its
+    """Single-request TTS engine on one device or a tp ``mesh`` (below).
+    ``model_dir`` loads a checkpoint (io/weights.load_params: a
+    ``params.npz`` of either package, or an HF directory with
+    ``model.safetensors`` and ``speech_tokenizer/``), its geometry too
+    when ``cfg`` is None, and its
     tokenizer (io/tokenizer.load_tokenizer); ``model_dir=None`` runs with
     random weights drawn from ``seed``; ``params`` supplies weights in the
     port's layout (io/weights.py) instead. ``quantize``: None
@@ -128,16 +132,41 @@ class TTSEngine:
 
     ``kv_cache_dir`` (an attribute, None by default): a directory where
     post-prefill states are also kept as ``qwen3_kv_<hash>.npz`` files,
-    the JAX engine's format and names."""
+    the JAX engine's format and names.
+
+    ``mesh``: a tensor-parallel parallel.mesh.Mesh (dp must be 1: dp
+    batching belongs to ContinuousBatcher(mesh=...)). The engine runs on
+    the rank's ``mesh.device``; the talker and the code predictor hold
+    this rank's shards (parallel/mesh.shard_params), the KV cache its kv
+    heads, and each layer adds up its row-parallel products over the tp
+    group. The talker is dense ("int8" is refused; a pre-quantized talker
+    is dequantized to ``dtype``), the code predictor dense or int8
+    ("int8-cp": under tp its products run on K1 over the shards, as K2
+    holds whole heads). Every rank of the group calls the engine with the
+    same arguments and gets the same result. ``kv_cache_dir`` files are
+    single-device."""
 
     def __init__(self, cfg: Optional[TTSConfig] = None,
                  model_dir: Optional[str] = None,
                  dtype=torch.bfloat16, seed: int = 0,
                  params: Optional[Dict] = None,
                  quantize: Optional[str] = None,
-                 device="cuda"):
+                 device="cuda", mesh=None):
         if quantize not in (None, "int8", "int8-cp"):
             raise ValueError(f"unsupported quantize={quantize!r}")
+        if mesh is not None:
+            if mesh.shape[pmesh.DP] != 1:
+                raise ValueError(
+                    f"TTSEngine mesh must be tensor-parallel only (dp=1), "
+                    f"got {mesh.shape} — dp batching belongs to "
+                    "ContinuousBatcher(mesh=...)")
+            if quantize == "int8":
+                raise ValueError(
+                    "quantize='int8' uses the fused single-chip talker "
+                    "layout (no mesh sharding specs); with a mesh use "
+                    "quantize='int8-cp' or None")
+            device = mesh.device
+        self.mesh = mesh
         self.device = torch.device(device)
         # seconds of loading a model_dir: "read", "map", "to_device"
         self.load_seconds: Dict[str, float] = {}
@@ -167,7 +196,11 @@ class TTSEngine:
             # never quantize twice; an int8 talker under "int8-cp" is
             # made dense, and a dense half that quantize asks for is
             # quantized
-            if pre_t and quantize == "int8-cp":
+            if pre_t and (quantize == "int8-cp" or mesh is not None):
+                if mesh is not None and quantize != "int8-cp":
+                    print(f"TTSEngine: pre-quantized talker -> dense "
+                          f"{dtype} for the mesh tier (the fused int8 "
+                          "layout is single-chip)", file=sys.stderr)
                 params["talker"] = quant.dequantize_talker(params["talker"],
                                                            dtype)
                 pre_t = False
@@ -186,6 +219,8 @@ class TTSEngine:
             params["code_predictor"] = quant.quantize_code_predictor(
                 params["code_predictor"])
         self.quantize = quantize
+        if mesh is not None:
+            params = pmesh.shard_params(mesh, params)
         c = self.cfg
         self.talker = tk.Talker(c.talker, params["talker"]).to(self.device)
         self.code_predictor = CodePredictor(
@@ -247,11 +282,12 @@ class TTSEngine:
         prefix cache keeps (cloned with ``ref``, tk.request_prefix). EOS
         pacing counts ``n_pace`` text tokens."""
         prefix, plen = tk.request_prefix(self._tp, self._cpp["codec_embs"],
-                                         ids, n_text, ref)
+                                         ids, n_text, ref, self.mesh)
         n_pace_t = torch.tensor([n_pace], dtype=torch.int32,
                                 device=self.device)
         return gen.init_state(self._tp, prefix[None], plen[None], n_pace_t,
-                              smp.batch_keys(0, 1), self.cfg)
+                              smp.batch_keys(0, 1), self.cfg,
+                              mesh=self.mesh)
 
     def _cache_get(self, k) -> Optional[gen.GenState]:
         snap = self._prefix_cache.get(k)
@@ -283,6 +319,9 @@ class TTSEngine:
         if snap is None:
             path = None
             if self.kv_cache_dir is not None:
+                if pmesh.tp_active(self.mesh):
+                    raise ValueError("kv_cache_dir holds whole states; a "
+                                     "tp mesh holds kv-head shards")
                 h = hashlib.md5(ids.astype(np.int32).tobytes()
                                 + str(int(n_text)).encode()).hexdigest()
                 path = os.path.join(self.kv_cache_dir,
@@ -419,7 +458,8 @@ class TTSEngine:
         return self._request_state(snap, seed, budget_cap)
 
     def _run(self, state: gen.GenState, steps: int) -> gen.GenState:
-        return gen.run_steps(self._tp, self._cpp, state, self.cfg, steps)
+        return gen.run_steps(self._tp, self._cpp, state, self.cfg, steps,
+                             self.mesh)
 
     @staticmethod
     def _status(state: gen.GenState) -> tuple:
@@ -605,15 +645,15 @@ class TTSEngine:
             n_text = torch.tensor([n for _, n in encoded], dtype=torch.int32,
                                   device=self.device)
         with _stage(timings, "decode"):
-            prefixes = [tk.build_prefix(self._tp, ids[i], encoded[i][1])
-                        for i in range(B)]
+            prefixes = [tk.build_prefix(self._tp, ids[i], encoded[i][1],
+                                        self.mesh) for i in range(B)]
             prefix = torch.stack([p for p, _ in prefixes])
             plen = torch.stack([n for _, n in prefixes])
             state = gen.init_state(self._tp, prefix, plen, n_text,
                                    smp.batch_keys(seed, B), self.cfg,
-                                   budget=budget)
+                                   budget=budget, mesh=self.mesh)
             state = gen.run_steps(self._tp, self._cpp, state, self.cfg,
-                                  budget)
+                                  budget, self.mesh)
             n_codes = state.n_codes.cpu().numpy()
             codes_all = state.codes.cpu().numpy()
         rows = []

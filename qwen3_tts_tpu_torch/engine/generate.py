@@ -52,14 +52,15 @@ class GenState:
 
 
 def prefill_state(talker_params: dict, prefix: torch.Tensor,
-                  prefix_len: torch.Tensor, cfg: TTSConfig,
-                  kv_dtype=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Talker prefill over a (B, P_pad, H) prefix: (hidden, kv)."""
+                  prefix_len: torch.Tensor, cfg: TTSConfig, kv_dtype=None,
+                  mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Talker prefill over a (B, P_pad, H) prefix: (hidden, kv). On a tp
+    ``mesh`` the cache holds this rank's kv heads."""
     tcfg = cfg.talker
-    kv = tfm.init_kv_cache(tfm.geometry_of(tcfg), prefix.shape[0],
+    kv = tfm.init_kv_cache(tfm.geometry_of(tcfg, mesh), prefix.shape[0],
                            tcfg.max_seq_len, dtype=kv_dtype or prefix.dtype,
                            device=prefix.device)
-    return tk.prefill(talker_params, prefix, prefix_len, kv, tcfg)
+    return tk.prefill(talker_params, prefix, prefix_len, kv, tcfg, mesh)
 
 
 def assemble_state(hidden: torch.Tensor, kv, prefix_len: torch.Tensor,
@@ -88,10 +89,10 @@ def assemble_state(hidden: torch.Tensor, kv, prefix_len: torch.Tensor,
 def init_state(talker_params: dict, prefix: torch.Tensor,
                prefix_len: torch.Tensor, n_text: torch.Tensor,
                key: torch.Tensor, cfg: TTSConfig, kv_dtype=None,
-               budget=None) -> GenState:
+               budget=None, mesh=None) -> GenState:
     """Prefill the talker and build the initial loop state."""
     hidden, kv = prefill_state(talker_params, prefix, prefix_len, cfg,
-                               kv_dtype)
+                               kv_dtype, mesh)
     return assemble_state(hidden, kv, prefix_len, n_text, key, cfg, budget)
 
 
@@ -107,15 +108,17 @@ def copy_state(state: GenState, **changes) -> GenState:
 
 def _loop_body(state: GenState, talker_params: dict, cp_params: dict,
                tts_pad_embed: torch.Tensor, cfg: TTSConfig,
-               rope_table: Optional[tuple] = None) -> GenState:
+               rope_table: Optional[tuple] = None, mesh=None) -> GenState:
     """One token for every row. The KV cache and the codes buffer are
-    updated in place; a frozen row rewrites its own slot harmlessly."""
+    updated in place; a frozen row rewrites its own slot harmlessly. On a
+    tp ``mesh`` the sampled logits are gathered whole, so the codes,
+    ``done`` and ``n_codes`` come out equal on every tp rank."""
     B = state.hidden.shape[0]
     scfg = cfg.sampling
     b_idx = torch.arange(B, device=state.hidden.device)
 
     # 1. code_0 from the current hidden
-    logits = tk.codec_logits(talker_params, state.hidden)
+    logits = tk.codec_logits(talker_params, state.hidden, mesh)
     seeds = smp.token_seeds(state.key, state.n_codes)        # (B, 3)
     code0 = smp.sample_code0(logits, state.ring, state.n_codes,
                              state.n_text, seeds[:, smp.SITE_CODE0], scfg)
@@ -134,7 +137,7 @@ def _loop_body(state: GenState, talker_params: dict, cp_params: dict,
     c0_embed = talker_params["codec_embedding"][code0_safe.long()]
     groups = cp.predict_codes(cp_params, state.hidden, c0_embed,
                               seeds[:, smp.SITE_CP_GROUP1:],
-                              cfg.code_predictor, scfg)           # (B, 15)
+                              cfg.code_predictor, scfg, mesh)     # (B, 15)
 
     # 3. feedback embedding
     embs = cp_params["codec_embs"]
@@ -144,7 +147,8 @@ def _loop_body(state: GenState, talker_params: dict, cp_params: dict,
 
     # 4. talker decode step
     new_hidden, kv = tk.decode_step(talker_params, fb, state.pos, state.kv,
-                                    cfg.talker, rope_table=rope_table)
+                                    cfg.talker, rope_table=rope_table,
+                                    mesh=mesh)
 
     # 5. commit for active rows only
     row = torch.cat([code0_safe[:, None], groups], dim=1)        # (B, 16)
@@ -168,14 +172,17 @@ def _loop_body(state: GenState, talker_params: dict, cp_params: dict,
 
 
 def run_steps(talker_params: dict, cp_params: dict, state: GenState,
-              cfg: TTSConfig, max_steps: int) -> GenState:
+              cfg: TTSConfig, max_steps: int, mesh=None) -> GenState:
     """Advance the loop by ``max_steps`` tokens, or fewer once every row
     is done. ``done`` is read back only every DONE_CHECK_STRIDE steps, so
     up to that many steps past the end may run: they change nothing,
-    because every row is frozen."""
+    because every row is frozen. ``mesh``: the tp mesh of sharded
+    weights and state; every rank of a tp group stops at the same step,
+    as its ``done`` is the same."""
     dev = state.hidden.device
     tts_pad_embed = tk.embed_text(
-        talker_params, torch.tensor([TTS_PAD_TOKEN_ID], device=dev))[0]
+        talker_params, torch.tensor([TTS_PAD_TOKEN_ID], device=dev),
+        mesh)[0]
     tcfg = cfg.talker
     rope_table = None
     if not isinstance(state.kv, tfm.PagedKV):
@@ -186,7 +193,7 @@ def run_steps(talker_params: dict, cp_params: dict, state: GenState,
         if i % DONE_CHECK_STRIDE == 0 and bool(state.done.all()):
             break
         state = _loop_body(state, talker_params, cp_params, tts_pad_embed,
-                           cfg, rope_table)
+                           cfg, rope_table, mesh)
     return state
 
 

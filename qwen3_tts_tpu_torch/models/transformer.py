@@ -23,6 +23,7 @@ from qwen3_tts_tpu_torch.ops import quant
 from qwen3_tts_tpu_torch.ops.kernels.decode_attention import decode_attention
 from qwen3_tts_tpu_torch.ops.kernels.paged_attention import (
     paged_decode_attention)
+from qwen3_tts_tpu_torch.parallel.mesh import TP, tp_all_reduce
 
 NEG_MASK = -1e30
 
@@ -69,9 +70,11 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
 
 
 def swiglu_mlp(x: torch.Tensor, gate_w, up_w, down_w,
-               gateup_w=None) -> torch.Tensor:
+               gateup_w=None, mesh=None) -> torch.Tensor:
     """down(silu(x @ gate) * (x @ up)); a fused gate|up weight runs as
-    one product, int8 gate and up weights as one group."""
+    one product, int8 gate and up weights as one group. On a tp ``mesh``
+    gate/up are column shards and down a row shard: the f32 partial sums
+    of the down product add up over the tp group before the cast."""
     if gateup_w is not None:
         gu = quant.matmul(x, gateup_w)
         inter = gu.shape[-1] // 2
@@ -79,7 +82,7 @@ def swiglu_mlp(x: torch.Tensor, gate_w, up_w, down_w,
     else:
         g, u = quant.matmul_group(x, [gate_w, up_w])
     h = (silu(g) * u).to(x.dtype)
-    return quant.matmul(h, down_w).to(x.dtype)
+    return tp_all_reduce(quant.matmul(h, down_w), mesh).to(x.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,14 +102,21 @@ class TransformerGeometry:
         return self.num_heads // self.num_kv_heads
 
 
-def geometry_of(cfg) -> TransformerGeometry:
-    """The shared geometry of a TalkerConfig / CodePredictorConfig."""
+def geometry_of(cfg, mesh=None) -> TransformerGeometry:
+    """The shared geometry of a TalkerConfig / CodePredictorConfig; on a
+    dp x tp ``mesh`` (parallel/mesh.py) one tp rank's: Hq/tp, Hkv/tp and
+    intermediate/tp, the shapes of its weight and KV shards."""
+    tp = 1 if mesh is None else mesh.shape[TP]
+    for name in ("num_heads", "num_kv_heads", "intermediate_size"):
+        if getattr(cfg, name) % tp:
+            raise ValueError(f"{name}={getattr(cfg, name)} does not split "
+                             f"over tp={tp}")
     return TransformerGeometry(
         num_layers=cfg.num_layers, hidden_size=cfg.hidden_size,
-        intermediate_size=cfg.intermediate_size, num_heads=cfg.num_heads,
-        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
-        rms_norm_eps=cfg.rms_norm_eps, rope_theta=cfg.rope_theta,
-        attn_impl=cfg.attention_impl)
+        intermediate_size=cfg.intermediate_size // tp,
+        num_heads=cfg.num_heads // tp, num_kv_heads=cfg.num_kv_heads // tp,
+        head_dim=cfg.head_dim, rms_norm_eps=cfg.rms_norm_eps,
+        rope_theta=cfg.rope_theta, attn_impl=cfg.attention_impl)
 
 
 def init_kv_cache(geo: TransformerGeometry, batch: int, max_seq: int,
@@ -160,29 +170,34 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _block(layer: dict, h: torch.Tensor, geo: TransformerGeometry,
-           cos, sin, attend):
+           cos, sin, attend, mesh=None):
     """One pre-norm transformer layer; ``attend(q, k, v)`` returns the
-    attention output (B, T, Hq*Dh) and stores K/V where it belongs."""
+    attention output (B, T, Hq*Dh) and stores K/V where it belongs. On a
+    tp ``mesh`` the heads are this rank's (``geo`` is its geometry), and
+    the f32 partial sums of the o product add up over the tp group
+    before the cast."""
     hn = rms_norm(h, layer["input_ln"], geo.rms_norm_eps)
     q, k, v = _qkv(layer, hn, geo, cos, sin)
     attn = attend(q, k, v)
     B, T = attn.shape[0], attn.shape[1]
-    attn = quant.matmul(attn.reshape(B * T, -1),
-                        layer["o_proj"]).reshape(B, T, -1).to(h.dtype)
-    h = h + attn
+    attn = tp_all_reduce(quant.matmul(attn.reshape(B * T, -1),
+                                      layer["o_proj"]), mesh)
+    h = h + attn.reshape(B, T, -1).to(h.dtype)
     hn = rms_norm(h, layer["post_ln"], geo.rms_norm_eps)
     return h + swiglu_mlp(hn, layer.get("gate_proj"), layer.get("up_proj"),
                           layer["down_proj"],
-                          gateup_w=layer.get("gateup_proj"))
+                          gateup_w=layer.get("gateup_proj"), mesh=mesh)
 
 
 def forward_prefill_unrolled(layers_list, x: torch.Tensor,
                              positions: torch.Tensor,
                              attn_mask: torch.Tensor,
                              geo: TransformerGeometry,
-                             kv_cache: Optional[torch.Tensor] = None):
+                             kv_cache: Optional[torch.Tensor] = None,
+                             mesh=None):
     """All layers over a full (padded) sequence x (B, P, H); K/V land in
-    kv_cache[:, :, :, :P] (in place). Returns (hidden before the final
+    kv_cache[:, :, :, :P] (in place). ``mesh``: the tp mesh of a sharded
+    stack (``geo`` its rank's geometry). Returns (hidden before the final
     norm, kv_cache)."""
     cos, sin = rope_cos_sin(positions, geo.head_dim, geo.rope_theta)
     P = x.shape[1]
@@ -193,7 +208,7 @@ def forward_prefill_unrolled(layers_list, x: torch.Tensor,
                 kv_cache[li, 0, :, :P] = k.to(kv_cache.dtype)
                 kv_cache[li, 1, :, :P] = v.to(kv_cache.dtype)
             return gqa_attention(q, k, v, attn_mask, geo)
-        h = _block(layer, h, geo, cos, sin, attend)
+        h = _block(layer, h, geo, cos, sin, attend, mesh)
     return h, kv_cache
 
 
@@ -204,10 +219,10 @@ def _layers(params: dict):
 
 def forward_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor,
                     attn_mask: torch.Tensor, geo: TransformerGeometry,
-                    kv_cache: Optional[torch.Tensor] = None):
+                    kv_cache: Optional[torch.Tensor] = None, mesh=None):
     """forward_prefill_unrolled over a stacked layer dict."""
     return forward_prefill_unrolled(_layers(params), x, positions,
-                                    attn_mask, geo, kv_cache)
+                                    attn_mask, geo, kv_cache, mesh)
 
 
 def causal_mask(batch: int, seq_len: int, lengths: torch.Tensor):
@@ -219,11 +234,13 @@ def causal_mask(batch: int, seq_len: int, lengths: torch.Tensor):
 
 
 def decode_step(params: dict, x: torch.Tensor, pos: torch.Tensor,
-                kv_cache: torch.Tensor, geo: TransformerGeometry):
+                kv_cache: torch.Tensor, geo: TransformerGeometry,
+                mesh=None):
     """One token per row over all layers: x (B, H), pos (B,) write
     positions. The new K/V rows go into kv_cache in place. Attention is
     K5 when ``geo.attn_impl == "pallas"``, plain torch ops otherwise.
-    Returns (hidden (B, H) before the final norm, kv_cache)."""
+    ``mesh``: the tp mesh of a sharded stack (``geo`` its rank's
+    geometry). Returns (hidden (B, H) before the final norm, kv_cache)."""
     B = x.shape[0]
     S = kv_cache.shape[3]
     cos, sin = rope_cos_sin(pos[:, None], geo.head_dim, geo.rope_theta)
@@ -240,7 +257,7 @@ def decode_step(params: dict, x: torch.Tensor, pos: torch.Tensor,
                                         kv_cache[li, 1], pos)[:, None]
             return gqa_attention(q, kv_cache[li, 0], kv_cache[li, 1],
                                  mask, geo)
-        h = _block(layer, h, geo, cos, sin, attend)
+        h = _block(layer, h, geo, cos, sin, attend, mesh)
     return h[:, 0], kv_cache
 
 
@@ -304,11 +321,11 @@ def paged_scatter_rows(paged: PagedKV, slot: int, rows_kv: torch.Tensor,
 
 
 def paged_decode_step(params: dict, x: torch.Tensor, pos: torch.Tensor,
-                      paged: PagedKV, geo: TransformerGeometry):
+                      paged: PagedKV, geo: TransformerGeometry, mesh=None):
     """decode_step against the paged pool: row b's new K/V land at page
     table[b, pos // psz], row pos % psz (in place), then attention over
-    the row's pages runs on K4. Returns (hidden (B, H) before the final
-    norm, paged)."""
+    the row's pages runs on K4. ``mesh``: as decode_step's. Returns
+    (hidden (B, H) before the final norm, paged)."""
     B = x.shape[0]
     psz = paged.page_size
     cos, sin = rope_cos_sin(pos[:, None], geo.head_dim, geo.rope_theta)
@@ -323,5 +340,5 @@ def paged_decode_step(params: dict, x: torch.Tensor, pos: torch.Tensor,
             pool_l[1, page_ids, rows] = v[:, 0].to(pool_l.dtype)
             return paged_decode_attention(q[:, 0], pool_l, paged.table,
                                           pos)[:, None]
-        h = _block(layer, h, geo, cos, sin, attend)
+        h = _block(layer, h, geo, cos, sin, attend, mesh)
     return h[:, 0], paged

@@ -40,8 +40,19 @@ Twin of qwen3_tts_tpu/serve/batching.py.
   1 (PERF.md has the H100's trade). Results equal depth 1's: a
   request's codes depend only on its seed.
 
-Not ported yet, and refused with the ROADMAP item named: a device
-``mesh``.
+- ``mesh`` (parallel/mesh.py): a dp x tp mesh, one rank a device. Every
+  rank runs this scheduler in lockstep, with identical submissions in
+  identical order and ``step()`` called the same number of times (the
+  JAX batcher's multi-process contract), so every scheduling decision is
+  the same everywhere. Dp group g holds only its contiguous slot block
+  (multihost.host_slot_range): those slots' state, KV rows and, paged,
+  its own sub-pool (local page 0 reserved); its tp ranks hold weight
+  shards and kv-head shards. Once a chunk one all-gather over dp of the
+  host status (done, n_codes, pos) gives every rank the whole batch's
+  status. Only tp rank 0 of the owning group vocodes a slot, streams its
+  segments and resolves its Future with (codes, audio); every other
+  rank resolves it with the remote marker (None, None). The prefix LRU
+  of a rank sees only its group's admissions.
 """
 
 from __future__ import annotations
@@ -69,8 +80,8 @@ from qwen3_tts_tpu_torch.models import vocoder_stream as vstream
 from qwen3_tts_tpu_torch.models.code_predictor import CodePredictor
 from qwen3_tts_tpu_torch.ops import quant
 from qwen3_tts_tpu_torch.ops import sampling as smp
-
-_ROADMAP = "is not ported yet (ROADMAP queue 1: continuous batcher, {})"
+from qwen3_tts_tpu_torch.parallel import mesh as pmesh
+from qwen3_tts_tpu_torch.parallel import multihost as mh
 
 
 class OverloadedError(RuntimeError):
@@ -120,8 +131,9 @@ class _Request:
 
 
 def _empty_state(cfg: TTSConfig, batch: int, dtype, device,
-                 paged_kv: Optional[tfm.PagedKV] = None) -> gen.GenState:
-    geo = tfm.geometry_of(cfg.talker)
+                 paged_kv: Optional[tfm.PagedKV] = None,
+                 mesh=None) -> gen.GenState:
+    geo = tfm.geometry_of(cfg.talker, mesh)
     i32 = dict(dtype=torch.int32, device=device)
     kv = paged_kv if paged_kv is not None else tfm.init_kv_cache(
         geo, batch, cfg.talker.max_seq_len, dtype=dtype, device=device)
@@ -175,13 +187,19 @@ def _insert_slot_paged(state: gen.GenState, slot: int, sub: gen.GenState,
 
 class ContinuousBatcher:
     """Fixed-slot continuous-batching scheduler over the decode loop, on
-    one device (``device``, the card unless the caller passes "cpu").
+    one device (``device``, the card unless the caller passes "cpu") or
+    on the rank's ``mesh.device`` of a dp x tp mesh (the module
+    docstring's lockstep contract).
 
     ``params``: the port's weights (io/weights.py), talker, code
     predictor and vocoder. ``dtype``: the talker's working type (weights,
     KV, hidden). ``quantize_talker`` keeps the talker int8 (fused layout;
     K3 up to 8 rows, the per-layer step on K1 past that); otherwise an
-    int8 talker is dequantized to ``dtype``. ``quantize_cp`` (default on)
+    int8 talker is dequantized to ``dtype``; on a mesh the talker is
+    always dense (the fused int8 layout has no sharding specs) and
+    ``quantize_talker`` is ignored, as in the JAX batcher. A dp-only rank
+    holds the whole code predictor (K2 up to 8 rows); under tp its int8
+    products run on K1 over the shards. ``quantize_cp`` (default on)
     makes the code predictor int8. ``prefix_cache``: capacity of the
     admission prefix LRU (0 disables). ``max_queue``: bound on waiting
     requests, past which submit() raises OverloadedError."""
@@ -197,9 +215,18 @@ class ContinuousBatcher:
         if pipeline_depth not in (1, 2):
             raise ValueError(f"pipeline_depth must be 1 or 2, "
                              f"got {pipeline_depth}")
+        self.mesh = mesh
+        self._n_groups = 1 if mesh is None else mesh.shape[pmesh.DP]
+        if batch_size % self._n_groups:
+            raise ValueError(f"batch_size {batch_size} not divisible by dp "
+                             f"{self._n_groups}")
+        # this rank's dp group holds slots [lo, hi); its tp rank 0 serves
+        # their results
+        self._lo, self._hi = ((0, batch_size) if mesh is None else
+                              mh.host_slot_range(mesh, batch_size))
+        self._serves = mesh is None or mesh.tp_index == 0
         if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh " + _ROADMAP.format("mesh and multi-process"))
+            device = mesh.device
         self.cfg = cfg
         self.device = torch.device(device)
         self.batch_size = batch_size
@@ -208,7 +235,7 @@ class ContinuousBatcher:
         self.pipeline_depth = pipeline_depth
 
         talker = _cast(params["talker"], dtype)
-        if quantize_talker:
+        if quantize_talker and mesh is None:
             if "qkv_proj" not in talker["layers"]:
                 talker = quant.quantize_talker(talker)
         elif any(isinstance(v, quant.QTensor)
@@ -217,6 +244,10 @@ class ContinuousBatcher:
         cpp = params["code_predictor"]
         if quantize_cp and not isinstance(cpp["lm_heads"], quant.QTensor):
             cpp = quant.quantize_code_predictor(cpp)
+        if mesh is not None:
+            local = pmesh.shard_params(
+                mesh, {"talker": talker, "code_predictor": cpp})
+            talker, cpp = local["talker"], local["code_predictor"]
         self._tp = tk.Talker(cfg.talker, talker).to(self.device).weights()
         self._cpp = CodePredictor(cfg.code_predictor,
                                   cpp).to(self.device).weights()
@@ -226,24 +257,31 @@ class ContinuousBatcher:
 
         self.paged = paged
         paged_kv = None
+        local_b = self._hi - self._lo
         if paged:
-            geo = tfm.geometry_of(cfg.talker)
+            geo = tfm.geometry_of(cfg.talker, mesh)
             self.page_size = page_size
             # default pool: every slot can reach max_tokens after a
-            # max-size prefix, plus the reserved page 0
+            # max-size prefix, plus the reserved page 0 of each dp group's
+            # sub-pool. A slot only holds pages of its group's sub-pool,
+            # and the table holds the sub-pool's local page ids.
             worst = cfg.max_tokens + 256 + tk.PREFIX_EXTRA + page_size
             per_slot = -(-worst // page_size)
             self.max_pages_per_slot = max_pages_per_slot or per_slot
-            self.pool_pages = pool_pages or batch_size * per_slot + 1
+            per_group = (-(-pool_pages // self._n_groups) if pool_pages
+                         else local_b * per_slot + 1)
+            self._pages_per_group = per_group
+            self.pool_pages = per_group * self._n_groups
             paged_kv = tfm.init_paged_kv(
-                geo, batch_size, self.pool_pages, page_size,
+                geo, local_b, per_group, page_size,
                 self.max_pages_per_slot, dtype=dtype, device=self.device)
-            self._free: List[int] = list(range(1, self.pool_pages))
+            self._free_by_group: List[List[int]] = [
+                list(range(1, per_group)) for _ in range(self._n_groups)]
             self._slot_pages: List[List[int]] = [[] for _ in
                                                  range(batch_size)]
         with torch.inference_mode():
-            self._state = _empty_state(cfg, batch_size, dtype, self.device,
-                                       paged_kv)
+            self._state = _empty_state(cfg, local_b, dtype, self.device,
+                                       paged_kv, mesh)
         self._slot_req: List[Optional[_Request]] = [None] * batch_size
         # (done, pos) host mirrors left by the harvest's status read: the
         # next step's admission uses them instead of a second device read
@@ -330,12 +368,24 @@ class ContinuousBatcher:
                              "misses": self.prefix_misses},
         }
         if self.paged:
-            snap["free_pages"] = len(self._free)
+            snap["free_pages"] = len(self._free_pages)
         return snap
 
     @property
     def _free_pages(self) -> List[int]:
-        return list(self._free) if self.paged else []
+        return ([p for free in self._free_by_group for p in free]
+                if self.paged else [])
+
+    def _holds(self, slot: int) -> bool:
+        """Whether this rank's dp group holds ``slot``'s state."""
+        return self._lo <= slot < self._hi
+
+    def _serves_slot(self, slot: int) -> bool:
+        """Whether this rank vocodes, streams and resolves ``slot``."""
+        return self._serves and self._holds(slot)
+
+    def _slot_group(self, slot: int) -> int:
+        return slot // (self.batch_size // self._n_groups)
 
     def start(self) -> None:
         if self._thread is not None and self._thread.is_alive():
@@ -415,13 +465,14 @@ class ContinuousBatcher:
         ready.record()
         return host, ready
 
-    @staticmethod
-    def _read_status(snap: tuple) -> tuple:
-        """(done, n_codes, pos) host arrays of a _snapshot_status."""
+    def _read_status(self, snap: tuple) -> tuple:
+        """(done, n_codes, pos) host arrays of a _snapshot_status, over
+        the whole batch: on a mesh of dp groups the one collective of the
+        scheduler, an all-gather over dp of the groups' host status."""
         host, ready = snap
         if ready is not None:
             ready.synchronize()
-        st = host.numpy()
+        st = pmesh.dp_all_gather(host, self.mesh).numpy()
         return st[0].astype(bool), st[1].copy(), st[2].copy()
 
     def _fetch_status(self, state: gen.GenState) -> tuple:
@@ -459,11 +510,11 @@ class ContinuousBatcher:
                 return hit
         prefix, plen = tk.request_prefix(self._tp, self._cpp["codec_embs"],
                                          req.text_ids, req.n_text,
-                                         req.cloned_prep)
+                                         req.cloned_prep, self.mesh)
         pcfg = dataclasses.replace(self.cfg, talker=dataclasses.replace(
             self.cfg.talker, max_seq_len=window))
         hidden, kv = gen.prefill_state(self._tp, prefix[None], plen[None],
-                                       pcfg)
+                                       pcfg, mesh=self.mesh)
         out = (hidden, kv, plen[None])
         self.prefix_misses += 1
         if self.prefix_cache_size > 0:
@@ -507,15 +558,18 @@ class ContinuousBatcher:
         at its last position, which must land in reserved page 0 and not
         in a page handed to another slot."""
         for s in slots:
-            self._state.done[s] = True
+            if self._holds(s):
+                self._state.done[s - self._lo] = True
             self._slot_req[s] = None
             if self.paged:
                 self._release(s)
 
     def _release(self, slot: int) -> None:
-        self._state.kv.table[slot] = 0
-        self._state.kv.capacity[slot] = 0
-        self._free.extend(self._slot_pages[slot])
+        if self._holds(slot):
+            self._state.kv.table[slot - self._lo] = 0
+            self._state.kv.capacity[slot - self._lo] = 0
+        self._free_by_group[self._slot_group(slot)].extend(
+            self._slot_pages[slot])
         self._slot_pages[slot] = []
 
     def _evict_cancelled(self, done: np.ndarray) -> frozenset:
@@ -548,9 +602,14 @@ class ContinuousBatcher:
                 if req.cancelled:
                     _fail([req], RuntimeError("request cancelled"))
                     continue
-                # a malformed request fails its own Future; the slot
+                # a malformed request fails its own Future, on every rank
+                # alike (the checks read only the host request); the slot
                 # moves on to the next request
                 try:
+                    vocab = self.cfg.talker.text_vocab_size
+                    if ((req.text_ids < 0) | (req.text_ids >= vocab)).any():
+                        raise ValueError(f"text ids out of the vocabulary "
+                                         f"[0, {vocab})")
                     if self.paged:
                         if not self._admit_paged(slot, req):
                             self._backlog.append(req)   # pool pressure
@@ -570,8 +629,9 @@ class ContinuousBatcher:
                                 f"dense KV allocation (max_seq_len={S}); "
                                 f"shorten the text or use the paged "
                                 f"batcher")
-                        _insert_slot(self._state, slot,
-                                     self._sub_state(req, S))
+                        if self._holds(slot):
+                            _insert_slot(self._state, slot - self._lo,
+                                         self._sub_state(req, S))
                 except Exception as e:
                     _fail([req], e)
                     continue
@@ -605,28 +665,30 @@ class ContinuousBatcher:
                 f"text or raise max_pages_per_slot/page_size")
         need = min(-(-(p_pad + self.decode_chunk + 2) // psz),
                    self.max_pages_per_slot)
-        usable = self.pool_pages - 1
+        usable = self._pages_per_group - 1
         if need > usable:
             raise ValueError(
                 f"request prefix needs {need} pages but the pool has only "
                 f"{usable} usable pages per dp group (pool_pages="
                 f"{self.pool_pages}, page_size={psz}); raise pool_pages "
                 f"or shorten the text")
-        if len(self._free) < need:
+        free = self._free_by_group[self._slot_group(slot)]
+        if len(free) < need:
             return False
         s_pre = -(-p_pad // psz) * psz
-        sub = self._sub_state(req, s_pre)
-        pages = [self._free.pop() for _ in range(need)]
-        table_row = torch.zeros((self.max_pages_per_slot,),
-                                dtype=torch.int32)
-        table_row[:need] = torch.tensor(pages, dtype=torch.int32)
-        try:
-            _insert_slot_paged(self._state, slot, sub,
-                               table_row.to(self.device), need * psz,
-                               n_rows=s_pre)
-        except BaseException:
-            self._free.extend(pages)
-            raise
+        sub = self._sub_state(req, s_pre) if self._holds(slot) else None
+        pages = [free.pop() for _ in range(need)]
+        if sub is not None:
+            table_row = torch.zeros((self.max_pages_per_slot,),
+                                    dtype=torch.int32)
+            table_row[:need] = torch.tensor(pages, dtype=torch.int32)
+            try:
+                _insert_slot_paged(self._state, slot - self._lo, sub,
+                                   table_row.to(self.device), need * psz,
+                                   n_rows=s_pre)
+            except BaseException:
+                free.extend(pages)
+                raise
         self._slot_pages[slot] = pages
         return True
 
@@ -645,15 +707,20 @@ class ContinuousBatcher:
                 if (len(pages) * psz - int(pos[slot])
                         >= self.pipeline_depth * self.decode_chunk + 2):
                     continue
-                if len(pages) >= self.max_pages_per_slot or not self._free:
+                free = self._free_by_group[self._slot_group(slot)]
+                if len(pages) >= self.max_pages_per_slot or not free:
                     continue
-                page = self._free.pop()
+                page = free.pop()
                 grows.append((slot, len(pages), page))
                 pages.append(page)
             if not grows:
                 return
+            mine = [(s - self._lo, i, p) for s, i, p in grows
+                    if self._holds(s)]
+            if not mine:
+                continue
             s, i, p = (torch.tensor(c, device=self.device)
-                       for c in zip(*grows))
+                       for c in zip(*mine))
             kv = self._state.kv
             kv.table[s, i] = p.to(torch.int32)
             kv.capacity[s] += psz
@@ -671,14 +738,15 @@ class ContinuousBatcher:
         tokens (StreamStepper.advance): a live slot once min-emit tokens
         are new, its sub-quantum rest waiting for more; a finished slot
         through its end and the zero-code frame that flushes the stream's
-        lag. The steps read the device codes row. Slots in ``skip`` are
-        left out. Returns (request, segment, n_codes) jobs, not yet
-        fetched."""
+        lag. The steps read the device codes row. Slots in ``skip``, and
+        those this rank does not serve, are left out. Returns (request,
+        segment, n_codes) jobs, not yet fetched."""
         jobs = []
         for slot in range(self.batch_size):
             req = self._slot_req[slot]
             if (req is None or req.on_chunk is None
-                    or req.stream_error is not None or slot in skip):
+                    or req.stream_error is not None or slot in skip
+                    or not self._serves_slot(slot)):
                 continue
             n = int(n_codes[slot])
             if not done[slot]:
@@ -687,7 +755,8 @@ class ContinuousBatcher:
                 if n - req.stream.frames < min_emit:
                     continue
             try:
-                segs = self._stepper.advance(self._vp, state.codes[slot],
+                segs = self._stepper.advance(self._vp,
+                                             state.codes[slot - self._lo],
                                              req.stream, n, bool(done[slot]))
             except Exception as e:
                 req.stream_error = e
@@ -734,7 +803,8 @@ class ContinuousBatcher:
         jobs = self._dispatch_stream_windows(state, done, n_codes, skip)
         # a copy: on the CPU .numpy() would share the buffer that the
         # slot's next request overwrites
-        codes_all = (state.codes.cpu().numpy().copy() if finished
+        codes_all = (state.codes.cpu().numpy().copy()
+                     if any(self._serves_slot(s) for s in finished)
                      else None)
         for req, seg, n in jobs:
             if req.stream_error is not None:
@@ -748,19 +818,25 @@ class ContinuousBatcher:
                 req.stream_error = e
         for slot in finished:
             req = self._slot_req[slot]
-            codes = codes_all[slot, :int(n_codes[slot])]
             try:
-                if req.on_chunk is None:
-                    audio = vocode(self._vp, codes, self.cfg.vocoder,
-                                   self.device)
-                elif req.stream_error is not None:
-                    raise req.stream_error
+                if not self._serves_slot(slot):
+                    # the owning group's tp rank 0 serves it: here the
+                    # request resolves to the remote marker
+                    result = (None, None)
                 else:
-                    audio = (np.concatenate(req.audio_parts)
-                             if req.audio_parts
-                             else np.zeros((0,), np.int16))
+                    codes = codes_all[slot - self._lo, :int(n_codes[slot])]
+                    if req.on_chunk is None:
+                        audio = vocode(self._vp, codes, self.cfg.vocoder,
+                                       self.device)
+                    elif req.stream_error is not None:
+                        raise req.stream_error
+                    else:
+                        audio = (np.concatenate(req.audio_parts)
+                                 if req.audio_parts
+                                 else np.zeros((0,), np.int16))
+                    result = (codes, audio)
                 req.t_done = time.perf_counter()
-                req.future.set_result((codes, audio))
+                req.future.set_result(result)
             except Exception as e:
                 req.t_done = time.perf_counter()
                 req.future.set_exception(e)
@@ -801,7 +877,7 @@ class ContinuousBatcher:
         if self.paged:
             self._top_up_pages(pos, done)
         self._state = gen.run_steps(self._tp, self._cpp, self._state,
-                                    self.cfg, self.decode_chunk)
+                                    self.cfg, self.decode_chunk, self.mesh)
         chunk = (self._state, self._snapshot_status(self._state))
         if self.pipeline_depth == 1:
             self._harvest(*chunk)

@@ -9,6 +9,10 @@ Two tiers: engine mode (default) serves one request at a time on
 or the Python fallback; batched mode (``--batch N``) admits the requests
 of concurrent connections, one thread each, into the continuous batcher
 (serve/batching.py), where they decode together.
+``--tp 1`` or ``--dp 1`` serve the batched tier over a one-rank mesh;
+a mesh of more than one rank is refused (each rank is a process, and the
+lockstep batcher needs a front end that hands every rank the same
+admissions: ROADMAP queue 1).
 
 Protocol (little-endian), the JAX daemon's:
   request:  [u32 len][JSON {"text", "language", "streaming", "seed",
@@ -709,6 +713,14 @@ def main(argv=None) -> int:
                    help="batched mode: 2 dispatches the next decode chunk "
                         "before it harvests the previous one; 1 surfaces "
                         "every frame one chunk earlier")
+    p.add_argument("--tp", type=int, default=0, metavar="N",
+                   help="batched mode over a dp x tp mesh (parallel/"
+                        "mesh.py; tp groups never cross a host). Requires "
+                        "--batch. 0 (default): no mesh")
+    p.add_argument("--dp", type=int, default=0, metavar="N",
+                   help="batched mode: the mesh's dp extent (slots split "
+                        "over dp; --batch must divide by it). Requires "
+                        "--batch")
     p.add_argument("--max_queue", type=int, default=0,
                    help="batched mode: refuse new requests once this many "
                         "wait ('overloaded'; HTTP 503); 0: unbounded")
@@ -725,6 +737,34 @@ def main(argv=None) -> int:
                    help="also serve HTTP on 127.0.0.1:PORT "
                         "(serve/http.py)")
     args = p.parse_args(argv)
+    mesh = None
+    if args.tp > 0 or args.dp > 0:
+        if args.batch <= 0:
+            p.error("--dp/--tp shard the batched tier; pass --batch N too")
+        if args.dp > 0 and args.batch % args.dp:
+            p.error(f"--batch {args.batch} not divisible by mesh "
+                    f"dp={args.dp} (slots shard over dp)")
+        if max(args.tp, 1) * max(args.dp, 1) > 1:
+            # each rank is a process here, and the lockstep batcher needs
+            # every rank to see the same admissions: a rank-0 front end
+            # that broadcasts them is the next slice of the port
+            p.error("a daemon over more than one rank is not ported yet "
+                    "(ROADMAP queue 1: the daemon's batched mode over a "
+                    "multi-rank mesh); drive ContinuousBatcher(mesh=...) "
+                    "in lockstep on every rank instead")
+        if int(os.environ.get("QWEN3_TTS_NUM_PROCESSES", "1")) > 1:
+            p.error(
+                "multi-process daemon serving is not supported: the "
+                "socket daemon dispatches from per-process request "
+                "arrivals, which violates multi-controller lockstep. "
+                "Run one daemon per host, or drive the batcher's "
+                "lockstep multi-process mode directly")
+        from qwen3_tts_tpu_torch.parallel import multihost as mh
+        mesh = mh.make_serving_mesh(tp=args.tp or 1,
+                                    dp=args.dp if args.dp > 0 else None,
+                                    devices=[args.device])
+        print(f"mesh dp{mesh.shape['dp']}xtp{mesh.shape['tp']} over "
+              f"{mesh.devices.size} device(s)", flush=True)
 
     import torch
 
@@ -753,7 +793,7 @@ def main(argv=None) -> int:
             page_size=args.page_size, pipeline_depth=args.pipeline_depth,
             prefix_cache=args.prefix_cache,
             max_queue=args.max_queue if args.max_queue > 0 else None,
-            device=args.device)
+            device=args.device, mesh=mesh)
     # warm up through the tier that serves, before the socket is bound
     if batcher is not None:
         batcher.start()

@@ -26,6 +26,7 @@ from qwen3_tts_tpu_torch.engine import generate as tgen
 from qwen3_tts_tpu_torch.io import weights as tweights
 from qwen3_tts_tpu_torch.models import talker as ttk
 from qwen3_tts_tpu_torch.ops import sampling as tsmp
+from qwen3_tts_tpu_torch.parallel import mesh as pmesh
 from qwen3_tts_tpu_torch.serve import batching as tbatching
 
 torch.set_num_threads(1)
@@ -265,12 +266,13 @@ def test_prefix_that_cannot_fit_fails_instead_of_wedging(params):
 
 
 def test_backpressure_and_refusals(params):
-    """max_queue raises OverloadedError; what is not ported yet (a device
-    mesh) raises NotImplementedError naming its ROADMAP item. Streaming (on_chunk),
-    once refused here, is ported: the request is served and its segments
-    make up its audio. Voice cloning, once refused here too, is ported:
+    """max_queue raises OverloadedError. Streaming (on_chunk), once
+    refused here, is ported: the request is served and its segments make
+    up its audio. Voice cloning, once refused here too, is ported:
     ref_codes without n_target (or the reverse) is a ValueError, as in
-    the JAX batcher."""
+    the JAX batcher. A device mesh, once refused here too, is ported: a
+    batch size that the mesh's dp does not divide is the JAX batcher's
+    ValueError."""
     b = tbatching.ContinuousBatcher(TINY, params, batch_size=1,
                                     dtype=torch.float32, device="cpu",
                                     max_queue=1)
@@ -287,6 +289,6 @@ def test_backpressure_and_refusals(params):
         b.submit(ids, n, ref_codes=np.zeros((4, 16)))
     with pytest.raises(ValueError, match="go together"):
         b.submit(ids, n, n_target=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tbatching.ContinuousBatcher(TINY, params, device="cpu",
-                                    mesh=object())
+    with pytest.raises(ValueError, match="not divisible by dp 2"):
+        tbatching.ContinuousBatcher(TINY, params, batch_size=3,
+                                    mesh=pmesh.make_mesh(2, 1, ["cpu"] * 2))

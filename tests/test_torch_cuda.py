@@ -190,6 +190,33 @@ def test_qmatmul_group_one_launch_matches_plain(cuda, Ns, M):
                                    atol=0)
 
 
+# the code predictor's int8 products on one rank of a tp mesh (parallel/
+# mesh.py) at full geometry: q|k|v and gate|up column shards, o and down
+# row shards (K split), an lm_head vocabulary shard
+CP_TP_SHARDS = {(tp, name): shape for tp in (2, 4) for name, shape in {
+    "q|k|v": (1024, [2048 // tp, 1024 // tp, 1024 // tp]),
+    "gate|up": (1024, [3072 // tp] * 2),
+    "o": (2048 // tp, [1024]), "down": (3072 // tp, [1024]),
+    "lm_head": (1024, [2048 // tp])}.items()}
+
+
+@pytest.mark.parametrize("M", [1, 8, 16])
+@pytest.mark.parametrize("tp,name", list(CP_TP_SHARDS))
+def test_qmatmul_on_cp_tp_shards(cuda, tp, name, M):
+    """K1 at a tp rank's shard shapes: decode rows (M <= 8, the group in
+    one qsplit launch) bit for bit against the plain version, the
+    2-token prefill of 8 rows (M = 16) on the tile within its bound."""
+    K, Ns = CP_TP_SHARDS[tp, name]
+    x, ws = _k1_case(cuda, M * 7 + K + sum(Ns), M, K, Ns)
+    before = _k1_counts()
+    outs = tqm.qmatmul_group(x, ws)
+    qsplit = tqm.on_qsplit(M, K, Ns)
+    assert tuple(n - m for n, m in zip(_k1_counts(), before)) == (
+        (1, 1, 0) if qsplit else (len(Ns), 0, len(Ns)))
+    for o, (q, s) in zip(outs, ws):
+        _assert_k1(o, x, q, s, "qsplit" if qsplit else "tile")
+
+
 def test_qmatmul_group_qsplit_refuses_runs_one_launch_a_weight(cuda):
     """A group at prefill rows: one tile launch a weight, each within the
     tile's bound."""
@@ -405,6 +432,9 @@ K5_CASES = {
     "B3-S100-G8": (3, 100, 16, 2, 128, [99, 0, 52]),
     "B2-S64-G3": (2, 64, 12, 4, 64, [63, 9]),
     "B2-S40-G6": (2, 40, 12, 2, 32, [39, 5]),
+    # the talker's heads on one rank of tp = 2 and tp = 4
+    "B4-S512-tp2": (4, 512, 8, 4, 128, [0, 511, 200, 37]),
+    "B4-S512-tp4": (4, 512, 4, 2, 128, [63, 64, 500, 1]),
 }
 
 
@@ -487,10 +517,22 @@ K4_CASES = {
 def test_paged_attention_kernel_is_k5_over_gathered_rows(cuda, dtype, case):
     """K4 at error 0 against its plain version and against K5 over the
     rows the table gathers; int32 and int64 pos alike."""
+    _check_k4(cuda, dtype, K4_CASES[case], 16, 8)
+
+
+@pytest.mark.parametrize("case", ["B4-psz64", "B8-psz16"])
+@pytest.mark.parametrize("tp", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_on_tp_shards(cuda, dtype, tp, case):
+    """K4 on one rank of a tp mesh: the talker's 16 / 8 heads split over
+    tp, over a dp group's sub-pool; as the whole heads' case."""
+    _check_k4(cuda, dtype, K4_CASES[case], 16 // tp, 8 // tp)
+
+
+def _check_k4(cuda, dtype, case, Hq, Hkv, Dh=128):
     from qwen3_tts_tpu_torch.ops.kernels import decode_attention as tda
     from qwen3_tts_tpu_torch.ops.kernels import paged_attention as tpa
-    B, psz, MAXP, P, pl = K4_CASES[case]
-    Hq, Hkv, Dh = 16, 8, 128
+    B, psz, MAXP, P, pl = case
     g = torch.Generator(device=cuda).manual_seed(B * psz)
     q = torch.randn((B, Hq, Dh), generator=g, device=cuda).to(dtype)
     pool = torch.randn((2, P, psz, Hkv, Dh), generator=g,
@@ -784,3 +826,51 @@ def test_batcher_depth2_equals_depth1_on_the_card(cuda, paged):
         assert len(c1) > 0 and len(a1) == len(c1) * 1920
         np.testing.assert_array_equal(c1, c2)
         np.testing.assert_array_equal(a1, a2)
+
+
+def test_mesh_over_nccl_on_four_cards(cuda, tmp_path):
+    """dp 2 x tp 2 on four cards, rank r on cuda:r (NCCL for the tp
+    collectives, gloo for the batcher's host status; ranks of
+    tests/torch_mesh_worker.py): the dense and paged batchers in f32,
+    greedy, at a small geometry of 8 heads and 4 kv heads give every
+    request the codes of one card without a mesh, and each request is
+    served by one rank."""
+    import dataclasses
+    import os
+    import sys
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_mesh_worker as W
+    from qwen3_tts_tpu_torch import config as C
+    from qwen3_tts_tpu_torch.io import weights as tw
+    from qwen3_tts_tpu_torch.serve.batching import ContinuousBatcher
+    base = C.tiny_tts_config(max_tokens=8)
+    cfg = dataclasses.replace(
+        base, talker=dataclasses.replace(base.talker, num_heads=8,
+                                         num_kv_heads=4, max_seq_len=64),
+        code_predictor=dataclasses.replace(base.code_predictor,
+                                           num_heads=8, num_kv_heads=4),
+        sampling=C.SamplingConfig(temperature=0.0, repetition_penalty=1.0,
+                                  cp_temperature=0.0))
+    params = tw.init_random_params(cfg, seed=0, dtype=torch.float32)
+    tw.save_pytree_npz(str(tmp_path / "params.npz"), params, config=cfg)
+    reqs = [(np.asarray((np.arange(4 + i % 3) * 7 + i * 13) % 997,
+                        np.int32), 4 + i % 3, 100 + i) for i in range(6)]
+    W.write_schedule(str(tmp_path / "in.npz"), reqs, batch=4,
+                     quantize_cp=False, stream=2)
+    outs = W.run_ranks("batcher", 2, 2, str(tmp_path), timeout=300,
+                       device="cuda")
+    for tag, paged in (("dense", False), ("paged", True)):
+        b = ContinuousBatcher(cfg, params, batch_size=4, decode_chunk=4,
+                              dtype=torch.float32, device="cuda",
+                              paged=paged, page_size=16, quantize_cp=False)
+        futs = [b.submit(ids, n, seed=s) for ids, n, s in reqs]
+        while not all(f.done() for f in futs):
+            b.step()
+        served = {i: o for o in outs for i in o[f"{tag}_owned"].tolist()}
+        assert sorted(served) == list(range(len(reqs)))
+        for i, f in enumerate(futs):
+            np.testing.assert_array_equal(served[i][f"{tag}_codes{i}"],
+                                          f.result()[0])
+

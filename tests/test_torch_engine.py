@@ -64,7 +64,7 @@ def test_synthesize_refuses_more_than_one_vocoder_window(monkeypatch):
     codes = np.random.default_rng(3).integers(
         0, 2048, (300, 16)).astype(np.int32)
 
-    def run_steps(tp, cpp, state, cfg, budget):
+    def run_steps(tp, cpp, state, cfg, budget, mesh=None):
         # a decode that ran to its 300-token budget without an EOS
         state.codes[0, :budget] = torch.from_numpy(codes[:budget])
         return dataclasses.replace(
@@ -142,7 +142,7 @@ def test_synthesize_vocodes_one_full_window(monkeypatch):
     eng = tengine.TTSEngine(pconfig.tiny_tts_config(max_tokens=256),
                             dtype=torch.float32, device="cpu")
 
-    def run_steps(tp, cpp, state, cfg, budget):
+    def run_steps(tp, cpp, state, cfg, budget, mesh=None):
         return dataclasses.replace(
             state, n_codes=torch.full_like(state.n_codes, budget))
     monkeypatch.setattr(tengine.gen, "run_steps", run_steps)
@@ -396,7 +396,7 @@ def test_cli_errors_return_one(tmp_path, monkeypatch, capsys):
                      str(tmp_path / "missing")]) == 1
     assert "error: invalid prompt_dir" in capsys.readouterr().err
 
-    def run_steps(tp, cpp, state, cfg, steps):
+    def run_steps(tp, cpp, state, cfg, steps, mesh=None):
         return dataclasses.replace(state, done=torch.ones_like(state.done))
     monkeypatch.setattr(tengine.gen, "run_steps", run_steps)
     out = tmp_path / "none.wav"

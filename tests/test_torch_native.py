@@ -112,6 +112,22 @@ def _frame(c):
     return data
 
 
+def _connect(path, deadline):
+    """A client of the loop at ``path``. The loop binds (the path
+    appears) before it listens, so a connect in between is refused:
+    retry that until ``deadline``."""
+    while True:
+        c = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        try:
+            c.connect(path)
+            return c
+        except ConnectionRefusedError:
+            c.close()
+            if time.time() > deadline:
+                raise
+            time.sleep(0.05)
+
+
 def test_serve_unix_roundtrip(tmp_path):
     """A blob reply, then a handler that writes two frames itself."""
     sock_path = str(tmp_path / "d.sock")
@@ -133,8 +149,7 @@ def test_serve_unix_roundtrip(tmp_path):
     try:
         for msg, want in ((b"hello", [b"echo:hello"]),
                           (b"stream", [b"frame0", b"frame1"])):
-            c = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
-            c.connect(sock_path)
+            c = _connect(sock_path, deadline)
             c.sendall(struct.pack("<I", len(msg)) + msg)
             assert [_frame(c) for _ in want] == want
             c.close()

@@ -111,7 +111,7 @@ def test_first_audio_is_none_without_tokens(engines, monkeypatch,
                                             streaming):
     """A decode that ends before its first token (EOS at step 0): no
     audio, no pieces, and first_audio_seconds is None."""
-    def run_steps(tp, cpp, state, cfg, steps):
+    def run_steps(tp, cpp, state, cfg, steps, mesh=None):
         return dataclasses.replace(state, done=torch.ones_like(state.done))
     monkeypatch.setattr(tengine.gen, "run_steps", run_steps)
     pieces = []
