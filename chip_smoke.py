@@ -100,7 +100,7 @@
    to the blob, /metrics parsed); the bf16 batched daemon (4 slots,
    decode_chunk 32) dense (K5) then paged (K4), six concurrent clients
    of at most 48 tokens, two streaming, at pipeline_depth 1 and 2 in
-   turns (1, 2, 2, 1, 1, 2 after a warm-up of each): every run's audio
+   turns (1, 2, 2, 1 after a warm-up of each): every run's audio
    equal to the first depth-1 run's bit for bit; audio-s per wall-s,
    request wall p50 and first frame p50 and p95 per depth; the compat
    stack over the int8 weights through the reference client (codes in
@@ -120,7 +120,7 @@
    mesh bit for bit; leg b, dp 2 x tp 1, two ranks on the one card over
    gloo: both batchers, every served request's codes, audio and stream
    segments equal to the one-device batcher's bit for bit, the served
-   sets a partition of the requests; leg c, dp 1 x tp 2 likewise, 8
+   sets a partition of the requests; leg c, dp 1 x tp 2 likewise, 4
    tokens a request: the int8-cp engine with K5 on the three texts
    (codes equal on both ranks; the talker hidden the first decode step
    reads and its codec logits at cosine >= 0.999 against the one-rank
@@ -134,6 +134,33 @@
    K1, K4 and K5 launched, K2 and K3 not. Each leg's seconds, ms a token
    or loop step and launches are printed; two ranks on one card check
    correctness, not multi-GPU speed.
+   Then the batched daemon over dp 2 x tp 1 (phase_daemon_mesh, before
+   any profile): its two ranks (this script with --daemon-rank DIR, which
+   runs serve/lockstep.rank_main, the rank entry of the daemon's own
+   launcher) on the one card over gloo, rank 0 the front end that
+   broadcasts every step's admissions, dense then paged (4 slots,
+   decode_chunk 32, depth 2, a voice registry). Six concurrent clients
+   (two streaming, at most 48 tokens), then a voice by name, a request
+   capped at 5 tokens and a streaming client that leaves mid-decode, then
+   one more request: every served request's n_tokens and audio equal to
+   the one-rank batched daemon's (a one-rank mesh in this process, the
+   same requests and seeds) bit for bit; the stream frames make the
+   stream's audio; SIGTERM to rank 0 drains both ranks, which exit 0 and
+   leave no socket; both ranks stepped alike, cancelled the vanished
+   request, and hold no slot, no queued request and, paged, every page
+   free at the stop. Printed: audio-s per wall-s and first-frame p50 of
+   the six clients beside the one-rank daemon's, the phase's seconds and
+   K1, K2 and K4 launches summed over the ranks. Then the serving soak
+   (phase_soak, qwen3_tts_tpu_torch/tools/soak_daemon): 12 s of the mixed
+   request surface (blob, streaming, cloned, capped, cancelled before
+   admission and mid-decode; at most 64 tokens a request) through the
+   bf16 batcher, dense then paged at depth 2; it must end healthy (every Future resolved, every slot and
+   page free, no step failed, streams equal to their audio). Then the
+   int8 quality dossier (phase_quality, qwen3_tts_tpu_torch/tools/
+   quality_check): int8 and int8-cp against bf16 on the three texts, 32
+   greedy steps, free-running and teacher-forced code agreement, hidden
+   cosine and SNR, the tool's JSON line printed; int8 launches K3, K2 and
+   K1, int8-cp K2 and K1 and no K3 and leaves the dense talker exact.
 4. Slice: TTSEngine(TTSConfig(), quantize="int8") synthesizes three short
    texts; each request must give codes in range, n_tokens * 1920 finite
    samples, and launch K1 (on both routes), K2 and K3; K1 at most 23
@@ -153,9 +180,10 @@
 9. The command line: --long --quantize int8 --profile DIR writes a WAV
    and a torch.profiler trace.
 10. One JSON line of per-kernel results (each kernel's launches on
-   its main path, and ``launches_mesh``: in phase_mesh, summed over its
-   ranks; K1, K4 and K5 with ``max_abs_err_tp_shards``), then the card
-   line, then
+   its main path, ``launches_mesh``: in phase_mesh, summed over its
+   ranks, ``launches_daemon_mesh``: in phase_daemon_mesh, summed over its
+   ranks, ``launches_soak``: in phase_soak; K1, K4 and K5 with
+   ``max_abs_err_tp_shards``), then the card line, then
    {"ok": true, "device": {...}} as the last line.
 
 Every path is driven with the launch counters set to 0 just before it and
@@ -2321,8 +2349,8 @@ def phase_checkpoint(eng, params, card: str, counters: dict) -> dict:
 # the serving phase's long request: two sentence pieces under the byte
 # tokenizer's piece budget of 33 tokens
 SERVE_LONG = "Привет! Hello there, this is the port."
-# the batched daemon's runs: depth 1 and 2 in turns, three each
-SERVE_DEPTHS = (1, 2, 2, 1, 1, 2)
+# the batched daemon's runs: depth 1 and 2 in turns, two each
+SERVE_DEPTHS = (1, 2, 2, 1)
 SERVE_STREAMING = (1, 4)
 SERVE_MAX_TOKENS = 48
 
@@ -2659,10 +2687,10 @@ def phase_serving(eng, params, card: str, counters: dict) -> dict:
 
 # tokens a request of the mesh phase may take, so that the phase stays
 # near two minutes: leg a's engines and batchers take 16, leg b's batchers
-# phase_batcher's 48, leg c 8 (its two ranks on one card run every tp
+# phase_batcher's 48, leg c 4 (its two ranks on one card run every tp
 # collective through gloo and the host, ~1.1 s a token)
 MESH_TOKENS = 16
-MESH_TP_TOKENS = 8
+MESH_TP_TOKENS = 4
 MESH_STREAMING = (1, 4)
 MESH_TP_TEXTS = 3          # requests of leg c's paged batcher
 MESH_RANK_TIMEOUT = 300
@@ -3340,6 +3368,372 @@ def phase_mesh(params, card: str) -> dict:
     return totals
 
 
+# ---------------------------------------------------------------------------
+# phase_daemon_mesh: the batched daemon over a dp 2 x tp 1 mesh of two ranks
+# (serve/lockstep.py), both on the one card over gloo; phase_quality: the
+# int8 dossier; phase_soak: the serving soak
+# ---------------------------------------------------------------------------
+
+# the second wave of the daemon phase: (text, seed, max_tokens, voice)
+DAEMON_WAVE2 = ((TEXTS[2], 7, SERVE_MAX_TOKENS, "clone"),
+                (TEXTS[0], 8, 5, None))
+DAEMON_VANISH = (LONG_TEXT, 9)              # its client leaves mid-decode
+DAEMON_AFTER = (TEXTS[1], 10, SERVE_MAX_TOKENS)
+DAEMON_RANK_TIMEOUT = 600
+DAEMON_FLAGS = ("--batch", "4", "--tp", "1", "--dp", "2", "--decode_chunk",
+                "32", "--python_loop")
+QUALITY_STEPS = 32
+# the soak's submissions last SOAK_SECONDS; its requests stop at
+# SOAK_MAX_TOKENS, so that the drain after them stays short
+SOAK_SECONDS = 12.0
+SOAK_MAX_TOKENS = 64
+
+
+def daemon_rank(out_dir: str, argv: list) -> int:
+    """One rank of phase_daemon_mesh's daemon: serve/lockstep.rank_main
+    (the rank entry of the daemon's own launcher) on cuda:0 over gloo,
+    its launch counters from 0; writes rank<r>.json (its summary at the
+    stop and its launches) to ``out_dir``."""
+    from qwen3_tts_tpu_torch.ops.kernels import _build
+    from qwen3_tts_tpu_torch.serve import lockstep
+    _build.load()
+    counters = launch_counters()
+    for fn in counters.values():
+        fn.launches = 0
+
+    def report(summary: dict) -> None:
+        summary["launches"] = _launches(counters)
+        with open(os.path.join(out_dir, f"rank{summary['rank']}.json"),
+                  "w") as f:
+            json.dump(summary, f)
+
+    return lockstep.rank_main(argv, backend="gloo", device="cuda:0",
+                              report=report)
+
+
+def _vanish(sock: str, text: str, seed: int) -> None:
+    """A streaming client that sends its request and leaves: the daemon
+    finds it gone at its first frame and withdraws the request."""
+    import socket
+    import struct
+    msg = json.dumps({"text": text, "seed": seed, "stream": True}).encode()
+    c = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+    c.connect(sock)
+    c.sendall(struct.pack("<I", len(msg)) + msg)
+    c.close()
+
+
+def _daemon_waves(sock: str, vanish: bool) -> dict:
+    """Wave 1: _batched_run's six concurrent clients (two streaming).
+    Wave 2 together: a cloned request (the registry's voice), a capped
+    one and, with ``vanish``, a client that leaves mid-decode; once the
+    daemon counts that request as failed, one more request."""
+    import threading
+    from qwen3_tts_tpu_torch.serve.daemon import DaemonClient
+    out = {"wave1": _batched_run(sock)}
+    got, errors = {}, []
+
+    def call(i, text, seed, cap, voice):
+        try:
+            got[i] = DaemonClient(sock).synthesize(
+                text, seed=seed, max_tokens=cap, voice=voice)
+        except Exception as e:     # reported below, on the main thread
+            errors.append((i, e))
+
+    threads = [threading.Thread(target=call, args=(i, *w))
+               for i, w in enumerate(DAEMON_WAVE2)]
+    for th in threads:
+        th.start()
+    if vanish:
+        _vanish(sock, *DAEMON_VANISH)
+    for th in threads:
+        th.join(timeout=600)
+    check(not errors and len(got) == len(DAEMON_WAVE2),
+          f"daemon wave 2: {errors}")
+    if vanish:
+        deadline = time.time() + 120
+        while DaemonClient(sock).stats()["errors"] < 1:
+            check(time.time() < deadline, "daemon: the vanished client's "
+                  "request was never withdrawn")
+            time.sleep(0.05)
+    text, seed, cap = DAEMON_AFTER
+    got["after"] = DaemonClient(sock).synthesize(text, seed=seed,
+                                                 max_tokens=cap)
+    out["wave2"] = got
+    out["stats"] = DaemonClient(sock).stats()
+    return out
+
+
+def _start_daemon_ranks(label: str, root: str, voices: str,
+                        paged: bool) -> dict:
+    """The two ranks of a dp 2 daemon (this script with --daemon-rank),
+    started by multihost.spawn_ranks on a thread of its own."""
+    import threading
+    from qwen3_tts_tpu_torch.parallel import multihost as mh
+    d = os.path.join(root, label)
+    os.makedirs(d)
+    sock = os.path.join(root, f"{label}.sock")
+    argv = [*DAEMON_FLAGS, "--socket", sock, "--voices", voices] + (
+        ["--paged"] if paged else [])
+    run = {"dir": d, "sock": sock, "procs": [], "exits": None,
+           "error": None}
+
+    def spawn():
+        try:
+            run["exits"] = mh.spawn_ranks(
+                [sys.executable, os.path.abspath(__file__), "--daemon-rank",
+                 d, *argv], 2, d, timeout=DAEMON_RANK_TIMEOUT,
+                on_start=run["procs"].extend)
+        except Exception as e:     # reported on the main thread
+            run["error"] = e
+
+    run["thread"] = threading.Thread(target=spawn, daemon=True)
+    run["thread"].start()
+    return run
+
+
+def _stop_daemon_ranks(label: str, run: dict) -> list:
+    """SIGTERM to rank 0 (it drains and stops both ranks); both must exit
+    0. Returns the two ranks' reports."""
+    import signal
+    from qwen3_tts_tpu_torch.parallel import multihost as mh
+    if run["procs"] and run["procs"][0].poll() is None:
+        run["procs"][0].send_signal(signal.SIGTERM)
+    run["thread"].join(timeout=120)
+    check(run["error"] is None, f"daemon {label}: {run['error']}")
+    check(run["exits"] is not None and all(e.code == 0
+                                           for e in run["exits"]),
+          f"daemon {label}: a rank failed:\n"
+          + mh.format_exits(run["exits"] or []))
+    check(not os.path.exists(run["sock"]),
+          f"daemon {label}: the socket was left behind")
+    reports = []
+    for r in range(2):
+        with open(os.path.join(run["dir"], f"rank{r}.json")) as f:
+            reports.append(json.load(f))
+    return reports
+
+
+def phase_daemon_mesh(bf16, params, card: str) -> dict:
+    """The batched daemon (bf16 talker, int8 code predictor, 4 slots,
+    decode_chunk 32, depth 2) over dp 2 x tp 1, its two ranks on the one
+    card over gloo, dense then paged: every request equal bit for bit to
+    the one-rank batched daemon (a one-rank mesh, in this process) on the
+    same requests and seeds; every slot and page free on both ranks at
+    the stop; the vanished client cancelled on both. Both daemons start
+    while the one-rank daemons serve. Returns K1, K2, K4's launches
+    summed over the ranks."""
+    import shutil
+    import tempfile
+    import threading
+    import numpy as np
+    from qwen3_tts_tpu_torch.config import TTSConfig
+    from qwen3_tts_tpu_torch.parallel import multihost as mh
+    from qwen3_tts_tpu_torch.serve import daemon as dm
+    from qwen3_tts_tpu_torch.serve.batching import ContinuousBatcher
+    from qwen3_tts_tpu_torch.serve.voices import VoiceRegistry
+    t_phase = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="q3dm_")
+    runs = {}
+    try:
+        voice_dir = os.path.join(root, "voices", "clone")
+        os.makedirs(voice_dir)
+        np.save(os.path.join(voice_dir, "ref_codec_tokens.npy"),
+                np.random.default_rng(7).integers(
+                    0, 2048, (CLONE_FRAMES, 16)).astype(np.int64))
+        with open(os.path.join(voice_dir, "ref_text.txt"), "w") as f:
+            f.write(CLONE_TEXT)
+        voices = os.path.join(root, "voices")
+        for paged in (False, True):
+            label = "paged" if paged else "dense"
+            runs[label] = _start_daemon_ranks(label, root, voices, paged)
+        # the one-rank daemons, in this process, while the ranks start
+        one = {}
+        for paged in (False, True):
+            label = "paged" if paged else "dense"
+            kw = dict(paged=True, page_size=64) if paged else {}
+            b = ContinuousBatcher(
+                TTSConfig(), params, batch_size=4, decode_chunk=32,
+                pipeline_depth=2, prefix_cache=8,
+                mesh=mh.make_serving_mesh(tp=1, dp=1, devices=["cuda"]),
+                **kw)
+            d = dm.TTSDaemon(bf16, os.path.join(root, f"one_{label}.sock"),
+                             batcher=b, voices=VoiceRegistry(voices))
+            t = threading.Thread(target=d.serve, daemon=True)
+            t.start()
+            try:
+                _wait_socket(d.socket_path)
+                one[label] = _daemon_waves(d.socket_path, vanish=False)
+            finally:
+                d.stop()
+                t.join(timeout=60)
+            del b
+        totals = {}
+        for label, run in runs.items():
+            paged = label == "paged"
+            deadline = time.time() + DAEMON_RANK_TIMEOUT
+            while not os.path.exists(run["sock"]):
+                check(run["exits"] is None and run["error"] is None,
+                      f"daemon {label}: the ranks ended before serving:\n"
+                      + mh.format_exits(run["exits"] or []))
+                check(time.time() < deadline,
+                      f"daemon {label}: the socket never appeared")
+                time.sleep(0.1)
+            got = _daemon_waves(run["sock"], vanish=True)
+            reports = _stop_daemon_ranks(label, run)
+            want = one[label]
+            w1, o1 = got["wave1"], want["wave1"]
+            for i in range(len(BATCH_TEXTS)):
+                check(w1["n_tokens"][i] == o1["n_tokens"][i] > 0
+                      and np.array_equal(w1["audio"][i], o1["audio"][i]),
+                      f"daemon {label}: request {i} differs from the "
+                      "one-rank daemon")
+            for k, (hdr, audio) in got["wave2"].items():
+                whdr, waudio = want["wave2"][k]
+                check(hdr["n_tokens"] == whdr["n_tokens"] > 0
+                      and np.array_equal(audio, waudio),
+                      f"daemon {label}: wave-2 request {k} differs from "
+                      "the one-rank daemon")
+            check(got["wave2"][1][0]["n_tokens"] <= 5,
+                  f"daemon {label}: the capped request ran past its cap")
+            check(reports[0]["steps"] == reports[1]["steps"],
+                  f"daemon {label}: the ranks stepped {reports[0]['steps']}"
+                  f" and {reports[1]['steps']} times")
+            for r in reports:
+                check(r["active_slots"] == 0 and r["queued"] == 0,
+                      f"daemon {label}: rank {r['rank']} holds a slot or a "
+                      f"request at the stop: {r}")
+                check(r["cancelled"] == 1, f"daemon {label}: rank "
+                      f"{r['rank']} cancelled {r['cancelled']} requests")
+                if paged:
+                    check(r["free_pages"] == r["usable_pages"],
+                          f"daemon {label}: rank {r['rank']} has "
+                          f"{r['free_pages']} of {r['usable_pages']} pages")
+            launches = {k: sum(r["launches"][k] for r in reports)
+                        for k in reports[0]["launches"]}
+            for k, v in launches.items():
+                totals[k] = totals.get(k, 0) + v
+            kernels = ("qmatmul", "cp_decode") + (
+                ("paged_attention",) if paged else ())
+            for k in kernels:
+                check(launches[k] > 0, f"daemon {label}: {k} was not "
+                      "launched")
+            first = [f for f in w1["first"] if f is not None]
+            print(f"daemon dp2 x tp1 {label} (two ranks on one card over "
+                  f"gloo): audio-s per wall-s {w1['audio_s'] / w1['wall']:.4f}"
+                  f" (one-rank daemon {o1['audio_s'] / o1['wall']:.4f}), "
+                  f"streaming first frame p50 "
+                  f"{np.percentile(first, 50):.4f} s (one-rank "
+                  f"{np.percentile(o1['first'], 50):.4f} s); "
+                  f"{len(BATCH_TEXTS) + len(got['wave2'])} requests equal to "
+                  f"the one-rank daemon's bit for bit (blobs, 2 streams, a "
+                  f"voice, a capped one); the vanished client cancelled on "
+                  f"both ranks; at the stop every slot "
+                  f"{'and page ' if paged else ''}free on both, "
+                  f"{reports[0]['steps']} steps each, served "
+                  f"{[r['served'] for r in reports]}; launches K1 "
+                  f"{launches['qmatmul']} K2 {launches['cp_decode']} K4 "
+                  f"{launches['paged_attention']} [{card}]")
+    finally:
+        for label, run in runs.items():
+            for p in run["procs"]:
+                if p.poll() is None:
+                    p.kill()
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"daemon mesh phase: {time.perf_counter() - t_phase:.1f} s; two "
+          "ranks on one card check correctness only, not multi-GPU speed; "
+          f"launches over the ranks K1 {totals['qmatmul']} K2 "
+          f"{totals['cp_decode']} K4 {totals['paged_attention']} [{card}]")
+    return totals
+
+
+def phase_quality(params, card: str, counters: dict) -> dict:
+    """The int8 quality dossier (qwen3_tts_tpu_torch/tools/quality_check)
+    at full geometry: int8 and int8-cp against bf16 on the three texts,
+    QUALITY_STEPS greedy steps. int8 launches K3, K2 and K1; int8-cp K2
+    and K1 and no K3, and leaves the dense talker exact (teacher-forced
+    hiddens at cosine 1, code_0 all equal). Prints the tool's JSON line;
+    returns its summary."""
+    import dataclasses
+    from qwen3_tts_tpu_torch.config import TTSConfig
+    from qwen3_tts_tpu_torch.tools import quality_check as qc
+    t_phase = time.perf_counter()
+    cfg = qc.greedy_config(dataclasses.replace(TTSConfig(),
+                                               max_tokens=QUALITY_STEPS))
+    ref = qc.build_engine(cfg, params, None, "cuda")
+    report, grew = {}, {}
+    for v in ("int8", "int8-cp"):
+        var = qc.build_engine(cfg, params, v, "cuda")
+        before = _launches(counters)
+        report[v] = qc.compare_variant(ref, var, TEXTS, 0, QUALITY_STEPS)
+        grew[v] = _grew(before, counters)
+        del var
+    del ref
+    for k in ("talker_step", "cp_decode", "qmatmul"):
+        check(grew["int8"][k] > 0, f"dossier int8: {k} was not launched")
+    check(grew["int8-cp"]["cp_decode"] > 0 and grew["int8-cp"]["qmatmul"] > 0
+          and grew["int8-cp"]["talker_step"] == 0,
+          f"dossier int8-cp: launches {grew['int8-cp']}")
+    a = report["int8-cp"]
+    check(a["tf_cos_min"] >= 1.0 - 1e-9 and a["tf_code0_agree"] == 1.0,
+          f"dossier int8-cp: the dense talker is not exact: {a}")
+    for v, a in report.items():
+        for k in ("tf_code0_agree", "tf_row_agree", "code0_agree",
+                  "row_agree", "prefix_frac", "int16_match"):
+            check(0.0 <= a[k] <= 1.0, f"dossier {v}: {k} {a[k]}")
+        check(a["tf_cos_min"] >= 0.99,
+              f"dossier {v}: tf_cos_min {a['tf_cos_min']} < 0.99")
+    line = qc.summary_line(report, "real", "random", 0, len(TEXTS))
+    print(f"dossier: {QUALITY_STEPS} greedy steps a text, {len(TEXTS)} "
+          f"texts, in {time.perf_counter() - t_phase:.1f} s; launches int8 "
+          f"K3 {grew['int8']['talker_step']} K2 {grew['int8']['cp_decode']}"
+          f" K1 {grew['int8']['qmatmul']}, int8-cp K2 "
+          f"{grew['int8-cp']['cp_decode']} K1 {grew['int8-cp']['qmatmul']} "
+          f"K3 {grew['int8-cp']['talker_step']} [{card}]")
+    print(f"dossier line: {line}")
+    return json.loads(line)
+
+
+def phase_soak(params, card: str, counters: dict) -> dict:
+    """The serving soak (qwen3_tts_tpu_torch/tools/soak_daemon) at full
+    geometry (the bf16 weights, requests of at most SOAK_MAX_TOKENS),
+    SOAK_SECONDS dense then paged at pipeline_depth 2: it must end
+    healthy. Returns the kernels' launches."""
+    import dataclasses
+    from qwen3_tts_tpu_torch.config import TTSConfig
+    from qwen3_tts_tpu_torch.engine.engine import TTSEngine
+    from qwen3_tts_tpu_torch.tools.soak_daemon import soak
+    eng = TTSEngine(dataclasses.replace(TTSConfig(),
+                                        max_tokens=SOAK_MAX_TOKENS),
+                    params=params, device="cuda")
+    totals = {}
+    for paged in (False, True):
+        label = "paged" if paged else "dense"
+        before = _launches(counters)
+        out = soak(seconds=SOAK_SECONDS, batch=4, decode_chunk=32,
+                   paged=paged, pipeline_depth=2, engine=eng)
+        grew = _grew(before, counters)
+        for k, v in grew.items():
+            totals[k] = totals.get(k, 0) + v
+        check(out["healthy"], f"soak {label}: not healthy: {out}")
+        check(out["ok"] > 0 and out["cancelled"] > 0,
+              f"soak {label}: served {out['ok']}, cancelled "
+              f"{out['cancelled']}")
+        for k in ("qmatmul", "cp_decode") + (
+                ("paged_attention",) if paged else ()):
+            check(grew[k] > 0, f"soak {label}: {k} was not launched")
+        print(f"soak {label}: {out['submitted']} requests in "
+              f"{out['wall_s']:.1f} s, ok {out['ok']}, cancelled "
+              f"{out['cancelled']} ({out['cancelled_mid']} mid-decode), "
+              f"audio-s per wall-s {out['audio_s_per_wall_s']:.4f}, "
+              f"healthy (every Future resolved, every slot"
+              f"{' and page' if paged else ''} free, no step failed, "
+              f"streams equal to their audio); launches K1 "
+              f"{grew['qmatmul']} K2 {grew['cp_decode']} K4 "
+              f"{grew['paged_attention']} [{card}]")
+    return totals
+
+
 def main() -> int:
     t_start = time.perf_counter()
     import torch
@@ -3356,6 +3750,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:2] == ["--mesh-rank"]:
         return mesh_rank(sys.argv[2], sys.argv[3])
+    if sys.argv[1:2] == ["--daemon-rank"]:
+        return daemon_rank(sys.argv[2], sys.argv[3:])
 
     card = card_line()
     print(f"card: {card}")
@@ -3397,6 +3793,11 @@ def main() -> int:
     phase_serving(eng, params, card, counters)
     tp_err = phase_tp_kernels(params, card)
     mesh = phase_mesh(params, card)
+    bf16 = TTSEngine(TTSConfig(), params=params, device="cuda")
+    daemon_mesh = phase_daemon_mesh(bf16, params, card)
+    del bf16
+    soaked = phase_soak(params, card, counters)
+    phase_quality(params, card, counters)
     by_name = {k["name"]: k for k in kernels}
     phase_kernel_profiles(eng, card, by_name["talker_step"],
                           by_name["cp_decode"])
@@ -3414,6 +3815,8 @@ def main() -> int:
     for k in kernels:
         k["launches"] = launches[k["name"]]
         k["launches_mesh"] = mesh.get(k["name"], 0)
+        k["launches_daemon_mesh"] = daemon_mesh.get(k["name"], 0)
+        k["launches_soak"] = soaked.get(k["name"], 0)
         if k["name"] in tp_err:
             k["max_abs_err_tp_shards"] = tp_err[k["name"]]
     print(f"chip_smoke: every phase passed in "

@@ -28,7 +28,6 @@ import argparse
 import dataclasses
 import os
 import sys
-import tempfile
 
 from qwen3_tts_tpu_torch.config import SUPPORTED_LANGUAGES
 
@@ -89,36 +88,14 @@ def parser() -> argparse.ArgumentParser:
 
 
 def _run_ranks(n: int, argv) -> int:
-    """Start the N ranks of ``--tp N`` (this command again, in a world
-    whose file store is in a temporary directory) and wait for them, at
-    most RANK_TIMEOUT_S seconds. Rank 0 keeps the standard output; a
-    failing rank ends the others, and the output of every rank that did
-    not exit 0 goes to stderr. Returns the failing rank's exit code (1 on
-    a timeout or a signal), else 0."""
+    """Start the N ranks of ``--tp N`` (this command again, through
+    multihost.run_own_ranks) and wait for them, at most RANK_TIMEOUT_S
+    seconds. Returns the failing rank's exit code, else 0."""
     from qwen3_tts_tpu_torch.parallel import multihost as mh
-    argv = list(sys.argv[1:] if argv is None else argv)
-    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-    path = os.environ.get("PYTHONPATH")
-    # ranks on one host's CPU share its cores
-    env = {"PYTHONPATH": root + (os.pathsep + path if path else ""),
-           "OMP_NUM_THREADS": os.environ.get(
-               "OMP_NUM_THREADS", str(max(1, os.cpu_count() // n)))}
-    with tempfile.TemporaryDirectory(prefix="qwen3_tts_tp_") as d:
-        try:
-            exits = mh.spawn_ranks(
-                [sys.executable, "-m", "qwen3_tts_tpu_torch.cli", *argv], n,
-                d, timeout=RANK_TIMEOUT_S, env=env, keep_rank0_output=True)
-        except TimeoutError as e:
-            print(f"error: {e}", file=sys.stderr)
-            return 1
-    failed = [e for e in exits if e.code]
-    if not failed:
-        return 0
-    # the ranks this process ended exit on a signal (a negative code)
-    first = next((e for e in failed if e.code > 0), failed[0])
-    print(f"error: --tp {n}: rank {first.rank} exited {first.code}\n"
-          + mh.format_exits(failed), file=sys.stderr)
-    return first.code if first.code > 0 else 1
+    return mh.run_own_ranks(
+        "qwen3_tts_tpu_torch.cli",
+        list(sys.argv[1:] if argv is None else argv), n, f"--tp {n}",
+        timeout=RANK_TIMEOUT_S)
 
 
 def main(argv=None) -> int:

@@ -143,8 +143,9 @@ class TTSEngine:
     is dequantized to ``dtype``), the code predictor dense or int8
     ("int8-cp": under tp its products run on K1 over the shards, as K2
     holds whole heads). Every rank of the group calls the engine with the
-    same arguments and gets the same result. ``kv_cache_dir`` files are
-    single-device."""
+    same arguments and gets the same result. ``kv_cache_dir`` files hold
+    whole states under tp too (the kv heads gathered over the group, tp
+    rank 0 writing), so either engine reads the other's."""
 
     def __init__(self, cfg: Optional[TTSConfig] = None,
                  model_dir: Optional[str] = None,
@@ -319,20 +320,13 @@ class TTSEngine:
         if snap is None:
             path = None
             if self.kv_cache_dir is not None:
-                if pmesh.tp_active(self.mesh):
-                    raise ValueError("kv_cache_dir holds whole states; a "
-                                     "tp mesh holds kv-head shards")
                 h = hashlib.md5(ids.astype(np.int32).tobytes()
                                 + str(int(n_text)).encode()).hexdigest()
                 path = os.path.join(self.kv_cache_dir,
                                     f"qwen3_kv_{h[:16]}.npz")
-                if os.path.exists(path):
-                    try:
-                        snap = self._load_state_npz(path)
-                        path = None         # no need to save it again
-                    except Exception as e:  # any unreadable file
-                        print(f"warning: prefix cache file {path} not "
-                              f"loaded ({e}); recomputing", file=sys.stderr)
+                snap = self._load_shared(path)
+                if snap is not None:
+                    path = None             # no need to save it again
             if snap is None:
                 snap = self._prefill_state(ids, n_text, n_text)
                 if path is not None:
@@ -344,23 +338,65 @@ class TTSEngine:
             self._cache_put(k, snap)
         return self._request_state(snap, seed, budget_cap)
 
+    def _load_shared(self, path: str) -> Optional[gen.GenState]:
+        """The state in the ``kv_cache_dir`` file ``path``, or None (no
+        file, or an unreadable one: the caller prefills). Under tp the
+        choice is one for the whole group: tp rank 0 reads the file and
+        broadcasts whether it loaded, and only then do the other ranks
+        read it (a rank that loads while another prefills would hang in
+        the prefill's collectives)."""
+        tp = pmesh.tp_active(self.mesh)
+        snap = None
+        if not tp or self.mesh.tp_index == 0:
+            if os.path.exists(path):
+                try:
+                    snap = self._load_state_npz(path)
+                except Exception as e:  # any unreadable file
+                    print(f"warning: prefix cache file {path} not "
+                          f"loaded ({e}); recomputing", file=sys.stderr)
+        if not tp:
+            return snap
+        loaded = pmesh.tp_broadcast_flag(snap is not None, self.mesh)
+        if loaded and snap is None:
+            # rank 0 read the whole file; a failure here cannot be
+            # recovered alone
+            snap = self._load_state_npz(path)
+        return snap if loaded else None
+
     def _save_state_npz(self, path: str, state: gen.GenState) -> None:
         """A post-prefill state as an npz of the JAX engine's fields:
         bf16 as f32 (npz has no bf16), and ``step``, the JAX loop's
-        counter, as 0."""
+        counter, as 0. Under tp the kv heads are gathered over the group
+        (every rank takes part) in the order shard_params split them, and
+        tp rank 0 writes the whole state, the one-device engine's file;
+        the file appears whole (written aside, then renamed)."""
         flat = {"step": np.zeros((), np.int32)}
         for f in dataclasses.fields(state):
             a = getattr(state, f.name)
+            if f.name == "kv" and pmesh.tp_active(self.mesh):
+                # (L, 2, B, S, Hkv/tp, Dh): heads to the last dim, gathered
+                # in tp order, back to dim 4
+                a = pmesh.tp_all_gather(a.movedim(4, -1).contiguous(),
+                                        self.mesh).movedim(-1, 4)
             if a.dtype == torch.bfloat16:
                 a = a.float()
             flat[f.name] = a.cpu().numpy()
-        np.savez(path, **flat)
+        if self.mesh is not None and self.mesh.tp_index != 0:
+            return
+        tmp = f"{path}.{os.getpid()}.tmp.npz"
+        try:
+            np.savez(tmp, **flat)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
 
     def _load_state_npz(self, path: str) -> gen.GenState:
-        """A state saved by this engine or the JAX one. ``step`` and
-        ``key`` are not read (a request brings its own key); a file
-        without ``budget`` loads with cfg.max_tokens; kv and hidden come
-        back in the talker's dtype."""
+        """A state saved by this engine or the JAX one, whole; under tp
+        this rank keeps its own kv heads. ``step`` and ``key`` are not
+        read (a request brings its own key); a file without ``budget``
+        loads with cfg.max_tokens; kv and hidden come back in the
+        talker's dtype."""
         names = [f.name for f in dataclasses.fields(gen.GenState)
                  if f.name != "key"]
         with np.load(path) as data:
@@ -376,6 +412,10 @@ class TTSEngine:
             raise ValueError(f"state of another geometry: kv "
                              f"{arrays['kv'].shape}, codes "
                              f"{arrays['codes'].shape}")
+        if pmesh.tp_active(self.mesh):
+            n = tcfg.num_kv_heads // self.mesh.shape[pmesh.TP]
+            lo = self.mesh.tp_index * n
+            arrays["kv"] = arrays["kv"][:, :, :, :, lo:lo + n]
         t = {k: torch.from_numpy(np.ascontiguousarray(v)).to(self.device)
              for k, v in arrays.items()}
         dt = self._tp["codec_embedding"].dtype

@@ -164,6 +164,17 @@ def tp_all_gather(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     return _gather_last(x, mesh.shape[TP], mesh.tp_group)
 
 
+def tp_broadcast_flag(flag: bool, mesh: Optional[Mesh]) -> bool:
+    """tp rank 0's ``flag`` on every rank of its tp group (a host tensor,
+    so gloo carries it): a decision that the group must take as one."""
+    if not tp_active(mesh):
+        return flag
+    t = torch.tensor([int(flag)], dtype=torch.int32)
+    dist.broadcast(t, src=mesh.devices[mesh.dp_index, 0].rank,
+                   group=mesh.tp_group)
+    return bool(t.item())
+
+
 def dp_all_gather(x: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
     """Each dp group's x (..., b) concatenated in dp order along the last
     dim, over this rank's dp group: the batcher's host status, a CPU

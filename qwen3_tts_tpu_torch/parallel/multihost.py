@@ -14,8 +14,8 @@ qwen3_tts_tpu/parallel/multihost.py, on torch.distributed.
 - ``barrier`` / ``shutdown_distributed``: a store barrier (not a device
   collective) and the teardown.
 - ``spawn_ranks``: start the n ranks of one machine as processes of a
-  command and wait for them (the CLI's ``--tp N``, chip_smoke.py, the
-  tests' rank workers).
+  command and wait for them (the CLI's ``--tp N``, the batched daemon's
+  ``--tp``/``--dp``, chip_smoke.py, the tests' rank workers).
 """
 
 from __future__ import annotations
@@ -24,9 +24,11 @@ import dataclasses
 import os
 import socket
 import subprocess
+import sys
+import tempfile
 import time
 from datetime import timedelta
-from typing import List, Optional, Sequence
+from typing import Callable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -236,14 +238,19 @@ class RankExit:
 
 def spawn_ranks(argv: Sequence[str], n: int, store_dir: str,
                 timeout: Optional[float] = None, env: Optional[dict] = None,
-                keep_rank0_output: bool = False) -> List[RankExit]:
+                keep_rank0_output: bool = False,
+                on_start: Optional[Callable[[list], None]] = None
+                ) -> List[RankExit]:
     """Run the command ``argv`` as the n ranks of a world on this machine:
     rank r gets QWEN3_TTS_NUM_PROCESSES=n, QWEN3_TTS_PROCESS_ID=r and a
     file store in ``store_dir`` (so no TCP port can clash), over this
     process's environment and ``env``. Rank r writes its output to
     ``store_dir``/log<r>.txt (its last 4000 characters come back); with
     ``keep_rank0_output`` rank 0 writes to this process's standard output
-    and error instead. The first rank that fails ends the others. Past
+    and error instead. ``on_start`` is called with the ranks' Popen
+    objects once all have started (to signal them: the batched daemon
+    passes its SIGTERM on to rank 0). The first rank that fails ends the
+    others. Past
     ``timeout`` seconds every rank is ended and TimeoutError raised with
     the ranks' output; a timeout also bounds each rank's rendezvous and
     collectives (QWEN3_TTS_DIST_INIT_TIMEOUT, unless given). Returns each
@@ -266,6 +273,8 @@ def spawn_ranks(argv: Sequence[str], n: int, store_dir: str,
                 list(argv), env=dict(base, QWEN3_TTS_PROCESS_ID=str(r)),
                 stdout=logs[r],
                 stderr=None if logs[r] is None else subprocess.STDOUT))
+        if on_start is not None:
+            on_start(procs)
         deadline = None if timeout is None else time.monotonic() + timeout
         while any(p.poll() is None for p in procs):
             if any(p.poll() not in (None, 0) for p in procs):
@@ -293,6 +302,41 @@ def spawn_ranks(argv: Sequence[str], n: int, store_dir: str,
             f"{n} ranks of {' '.join(argv[:3])} still running after "
             f"{timeout} s:\n" + format_exits(out))
     return out
+
+
+def run_own_ranks(module: str, argv: Sequence[str], n: int, label: str,
+                  timeout: Optional[float] = None,
+                  on_start: Optional[Callable[[list], None]] = None) -> int:
+    """Run ``python -m module argv`` as the n ranks of a world on this
+    machine, its file store in a temporary directory (spawn_ranks), with
+    this checkout on PYTHONPATH and this host's cores split among the
+    ranks; rank 0 keeps this process's output. A failing rank ends the
+    others; the output of every rank that did not exit 0 goes to stderr
+    under ``label``. Returns the failing rank's exit code (1 on a timeout
+    or a signal), else 0. The launcher of the CLI's ``--tp N`` and of the
+    batched daemon's ``--tp``/``--dp``."""
+    root = os.path.dirname(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    path = os.environ.get("PYTHONPATH")
+    env = {"PYTHONPATH": root + (os.pathsep + path if path else ""),
+           "OMP_NUM_THREADS": os.environ.get(
+               "OMP_NUM_THREADS", str(max(1, (os.cpu_count() or 1) // n)))}
+    with tempfile.TemporaryDirectory(prefix="qwen3_tts_ranks_") as d:
+        try:
+            exits = spawn_ranks([sys.executable, "-m", module, *argv], n, d,
+                                timeout=timeout, env=env,
+                                keep_rank0_output=True, on_start=on_start)
+        except TimeoutError as e:
+            print(f"error: {e}", file=sys.stderr)
+            return 1
+    failed = [e for e in exits if e.code]
+    if not failed:
+        return 0
+    # the ranks this process ended exit on a signal (a negative code)
+    first = next((e for e in failed if e.code > 0), failed[0])
+    print(f"error: {label}: rank {first.rank} exited {first.code}\n"
+          + format_exits(failed), file=sys.stderr)
+    return first.code if first.code > 0 else 1
 
 
 def format_exits(exits: Sequence[RankExit]) -> str:

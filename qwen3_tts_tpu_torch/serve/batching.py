@@ -52,7 +52,9 @@ Twin of qwen3_tts_tpu/serve/batching.py.
   status. Only tp rank 0 of the owning group vocodes a slot, streams its
   segments and resolves its Future with (codes, audio); every other
   rank resolves it with the remote marker (None, None). The prefix LRU
-  of a rank sees only its group's admissions.
+  of a rank sees only its group's admissions. The daemon serves such a
+  mesh through a rank-0 front end that broadcasts the submissions
+  (serve/lockstep.py).
 """
 
 from __future__ import annotations
@@ -370,6 +372,13 @@ class ContinuousBatcher:
         if self.paged:
             snap["free_pages"] = len(self._free_pages)
         return snap
+
+    def busy(self) -> bool:
+        """Whether a step has work: a slot is held or a request waits
+        (read on the thread that steps)."""
+        return (any(r is not None for r in self._slot_req)
+                or bool(self._waiting) or bool(self._backlog)
+                or not self._queue.empty())
 
     @property
     def _free_pages(self) -> List[int]:

@@ -9,10 +9,10 @@ Two tiers: engine mode (default) serves one request at a time on
 or the Python fallback; batched mode (``--batch N``) admits the requests
 of concurrent connections, one thread each, into the continuous batcher
 (serve/batching.py), where they decode together.
-``--tp 1`` or ``--dp 1`` serve the batched tier over a one-rank mesh;
-a mesh of more than one rank is refused (each rank is a process, and the
-lockstep batcher needs a front end that hands every rank the same
-admissions: ROADMAP queue 1).
+``--tp``/``--dp`` serve the batched tier over a dp x tp mesh: one rank
+in this process, or, for more, ranks that this command starts, one a
+device, whose rank 0 serves the socket and broadcasts every step's
+admissions to the others (serve/lockstep.py).
 
 Protocol (little-endian), the JAX daemon's:
   request:  [u32 len][JSON {"text", "language", "streaming", "seed",
@@ -684,9 +684,8 @@ class DaemonClient:
             c.close()
 
 
-def main(argv=None) -> int:
+def parser():
     import argparse
-    import signal
 
     p = argparse.ArgumentParser(
         description="Qwen3-TTS daemon (PyTorch port; the card by default)")
@@ -715,12 +714,15 @@ def main(argv=None) -> int:
                         "every frame one chunk earlier")
     p.add_argument("--tp", type=int, default=0, metavar="N",
                    help="batched mode over a dp x tp mesh (parallel/"
-                        "mesh.py; tp groups never cross a host). Requires "
-                        "--batch. 0 (default): no mesh")
+                        "mesh.py; tp groups never cross a host), one rank "
+                        "a device, started by this command (rank 0 serves "
+                        "the socket; serve/lockstep.py). Requires --batch. "
+                        "0 (default): no mesh")
     p.add_argument("--dp", type=int, default=0, metavar="N",
                    help="batched mode: the mesh's dp extent (slots split "
-                        "over dp; --batch must divide by it). Requires "
-                        "--batch")
+                        "over dp; --batch must divide by it); by default "
+                        "every card of this host over tp (1 on the CPU). "
+                        "Requires --batch")
     p.add_argument("--max_queue", type=int, default=0,
                    help="batched mode: refuse new requests once this many "
                         "wait ('overloaded'; HTTP 503); 0: unbounded")
@@ -736,6 +738,11 @@ def main(argv=None) -> int:
     p.add_argument("--http", type=int, default=0, metavar="PORT",
                    help="also serve HTTP on 127.0.0.1:PORT "
                         "(serve/http.py)")
+    return p
+
+
+def main(argv=None) -> int:
+    p = parser()
     args = p.parse_args(argv)
     mesh = None
     if args.tp > 0 or args.dp > 0:
@@ -744,28 +751,79 @@ def main(argv=None) -> int:
         if args.dp > 0 and args.batch % args.dp:
             p.error(f"--batch {args.batch} not divisible by mesh "
                     f"dp={args.dp} (slots shard over dp)")
-        if max(args.tp, 1) * max(args.dp, 1) > 1:
-            # each rank is a process here, and the lockstep batcher needs
-            # every rank to see the same admissions: a rank-0 front end
-            # that broadcasts them is the next slice of the port
-            p.error("a daemon over more than one rank is not ported yet "
-                    "(ROADMAP queue 1: the daemon's batched mode over a "
-                    "multi-rank mesh); drive ContinuousBatcher(mesh=...) "
-                    "in lockstep on every rank instead")
         if int(os.environ.get("QWEN3_TTS_NUM_PROCESSES", "1")) > 1:
+            # this command starts its own ranks (serve/lockstep.py); a
+            # world set up around it would serve each rank's own arrivals
             p.error(
                 "multi-process daemon serving is not supported: the "
                 "socket daemon dispatches from per-process request "
                 "arrivals, which violates multi-controller lockstep. "
-                "Run one daemon per host, or drive the batcher's "
-                "lockstep multi-process mode directly")
+                "Run one daemon per host (it starts its own ranks for "
+                "--tp/--dp), or drive the batcher's lockstep "
+                "multi-process mode directly")
+        tp = args.tp or 1
+        if args.dp > 0:
+            dp = args.dp
+        elif args.device == "cpu":
+            dp = 1
+        else:
+            import torch
+            dp = max(torch.cuda.device_count() // tp, 1)
+        if args.batch % dp:
+            p.error(f"--batch {args.batch} not divisible by mesh dp={dp} "
+                    "(slots shard over dp)")
         from qwen3_tts_tpu_torch.parallel import multihost as mh
-        mesh = mh.make_serving_mesh(tp=args.tp or 1,
-                                    dp=args.dp if args.dp > 0 else None,
-                                    devices=[args.device])
+        if dp * tp > 1:
+            if args.device != "cpu":
+                import torch
+                # every rank needs a card of its own (the first N of this
+                # host's): fail here, not in N processes
+                cards = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+                try:
+                    mh.make_serving_mesh(tp=tp, dp=dp,
+                                         devices=cards[:dp * tp])
+                except ValueError as e:
+                    p.error(str(e))
+            return _launch_ranks(dp * tp, argv)
+        mesh = mh.make_serving_mesh(tp=1, dp=1, devices=[args.device])
         print(f"mesh dp{mesh.shape['dp']}xtp{mesh.shape['tp']} over "
               f"{mesh.devices.size} device(s)", flush=True)
+    engine, batcher = build(args, mesh)
+    return serve_main(args, engine, batcher)
 
+
+def _launch_ranks(n: int, argv) -> int:
+    """Start the n ranks of a multi-rank batched daemon (serve/lockstep.
+    rank_main over this command line, through multihost.run_own_ranks)
+    and wait for them; SIGTERM and SIGINT go on to rank 0, which drains
+    and stops every rank. Returns the failing rank's exit code, else
+    0."""
+    import signal
+
+    from qwen3_tts_tpu_torch.parallel import multihost as mh
+    procs: list = []
+
+    def forward(signum, frame):
+        if procs and procs[0].poll() is None:
+            procs[0].send_signal(signum)
+
+    old = {s: signal.signal(s, forward)
+           for s in (signal.SIGTERM, signal.SIGINT)}
+    try:
+        return mh.run_own_ranks(
+            "qwen3_tts_tpu_torch.serve.lockstep",
+            list(sys.argv[1:] if argv is None else argv), n, "daemon",
+            on_start=procs.extend)
+    finally:
+        for s, h in old.items():
+            signal.signal(s, h)
+
+
+def build(args, mesh, max_queue="args"):
+    """The engine and, with ``--batch``, the batcher of a daemon command
+    line (on ``mesh`` when given). ``max_queue``: the batcher's bound
+    (``--max_queue`` by default; None on a lockstep rank, whose front end
+    decides)."""
     import torch
 
     from qwen3_tts_tpu_torch.config import TTSConfig, tiny_tts_config
@@ -779,21 +837,34 @@ def main(argv=None) -> int:
     dtype = torch.bfloat16 if args.dtype == "bfloat16" else torch.float32
     quantize = args.quantize
     if quantize and args.batch > 0:
-        print("--quantize ignored with --batch > 0 (the batched tier is "
-              "bf16, its code predictor int8)", flush=True)
+        if mesh is None or mesh.rank == 0:
+            print("--quantize ignored with --batch > 0 (the batched tier "
+                  "is bf16, its code predictor int8)", flush=True)
         quantize = None
+    device = mesh.device if mesh is not None else args.device
     engine = TTSEngine(cfg, model_dir=args.model_dir, dtype=dtype,
-                       quantize=quantize, device=args.device)
-    batcher = None
-    if args.batch > 0:
-        from qwen3_tts_tpu_torch.serve.batching import ContinuousBatcher
-        batcher = ContinuousBatcher(
-            engine.cfg, engine.params, batch_size=args.batch, dtype=dtype,
-            decode_chunk=args.decode_chunk, paged=args.paged,
-            page_size=args.page_size, pipeline_depth=args.pipeline_depth,
-            prefix_cache=args.prefix_cache,
-            max_queue=args.max_queue if args.max_queue > 0 else None,
-            device=args.device, mesh=mesh)
+                       quantize=quantize, device=device)
+    if args.batch <= 0:
+        return engine, None
+    from qwen3_tts_tpu_torch.serve.batching import ContinuousBatcher
+    if max_queue == "args":
+        max_queue = args.max_queue if args.max_queue > 0 else None
+    batcher = ContinuousBatcher(
+        engine.cfg, engine.params, batch_size=args.batch, dtype=dtype,
+        decode_chunk=args.decode_chunk, paged=args.paged,
+        page_size=args.page_size, pipeline_depth=args.pipeline_depth,
+        prefix_cache=args.prefix_cache, max_queue=max_queue,
+        device=device, mesh=mesh)
+    return engine, batcher
+
+
+def serve_main(args, engine, batcher) -> int:
+    """Warm up through the tier that serves, then serve the socket (and
+    HTTP) until SIGTERM/SIGINT. ``batcher``: a ContinuousBatcher, a
+    serve/lockstep.LockstepFront (rank 0 of a multi-rank daemon) or
+    None (engine mode). Returns the exit code."""
+    import signal
+
     # warm up through the tier that serves, before the socket is bound
     if batcher is not None:
         batcher.start()
@@ -809,6 +880,9 @@ def main(argv=None) -> int:
         print(f"voice registry: {len(voices)} voice(s) {voices.names()}",
               flush=True)
     daemon = TTSDaemon(engine, args.socket, batcher=batcher, voices=voices)
+    if hasattr(batcher, "on_failure"):
+        # a failed lockstep step ends the world: stop serving
+        batcher.on_failure = daemon.stop
     srv = None
     if args.http:
         from qwen3_tts_tpu_torch.serve.http import serve_http
@@ -848,6 +922,10 @@ def main(argv=None) -> int:
             srv.shutdown()
     if serve_error:
         print(f"serve loop failed: {serve_error[0]!r}", flush=True)
+        return 1
+    error = getattr(batcher, "error", None)
+    if error is not None:
+        print(f"lockstep thread failed: {error!r}", flush=True)
         return 1
     return 0
 

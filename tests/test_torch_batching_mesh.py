@@ -203,9 +203,9 @@ def test_dp2_tp2_codes_equal_jax_batcher_on_mesh(tmp_path):
 
 
 def test_daemon_mesh_flags_validation():
-    """--dp/--tp misuse exits 2 before any engine is built: mesh flags
-    without --batch, a batch dp does not divide, and (for now) a mesh of
-    more than one rank, which names its ROADMAP item."""
+    """--dp/--tp misuse exits 2 before any engine is built (the JAX
+    daemon's checks): mesh flags without --batch, and a batch dp does not
+    divide."""
     base = ["--tiny", "--device", "cpu"]
     with pytest.raises(SystemExit) as e:
         tdaemon.main(base + ["--tp", "2"])
@@ -213,17 +213,6 @@ def test_daemon_mesh_flags_validation():
     with pytest.raises(SystemExit) as e:
         tdaemon.main(base + ["--batch", "3", "--tp", "2", "--dp", "2"])
     assert e.value.code == 2
-    for flags in (["--tp", "2"], ["--dp", "2"], ["--tp", "2", "--dp", "2"]):
-        with pytest.raises(SystemExit) as e:
-            tdaemon.main(base + ["--batch", "4"] + flags)
-        assert e.value.code == 2
-
-
-def test_daemon_multi_rank_refusal_names_roadmap(capsys):
-    with pytest.raises(SystemExit):
-        tdaemon.main(["--tiny", "--device", "cpu", "--batch", "4",
-                      "--tp", "2", "--dp", "2"])
-    assert "ROADMAP" in capsys.readouterr().err
 
 
 def test_daemon_one_rank_mesh_serves(tmp_path):

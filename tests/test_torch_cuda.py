@@ -874,3 +874,103 @@ def test_mesh_over_nccl_on_four_cards(cuda, tmp_path):
             np.testing.assert_array_equal(served[i][f"{tag}_codes{i}"],
                                           f.result()[0])
 
+
+
+def test_daemon_dp2_tp2_over_nccl_on_four_cards(cuda, tmp_path):
+    """``daemon --batch 4 --tp 2 --dp 2`` on four cards (its own four
+    ranks, rank r on cuda:r, NCCL for the tp collectives; serve/
+    lockstep.py's rank-0 front end): it reports the mesh, serves a blob
+    and a stream, and drains on SIGTERM; the blob's audio and the
+    stream's frames equal the lockstep ContinuousBatcher(mesh=...) driven
+    directly on the same mesh (tests/torch_mesh_worker.py) with the same
+    submissions, weights and seeds."""
+    import os
+    import signal
+    import subprocess
+    import sys
+    import time
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four cards")
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch_mesh_worker as W
+    from qwen3_tts_tpu_torch import config as C
+    from qwen3_tts_tpu_torch.engine.engine import TTSEngine
+    from qwen3_tts_tpu_torch.io import weights as tw
+    from qwen3_tts_tpu_torch.serve.daemon import DaemonClient
+    cfg = C.tiny_tts_config(max_tokens=32)        # the daemon's --tiny
+    params = tw.init_random_params(cfg, seed=0, dtype=torch.float32)
+    tw.save_pytree_npz(str(tmp_path / "params.npz"), params, config=cfg)
+    texts = (("four card blob", 3), ("four card stream", 5))
+    eng = TTSEngine(cfg, params=params, dtype=torch.float32, device="cpu")
+    reqs = [(*eng._encode_text(t), s) for t, s in texts]
+    W.write_schedule(str(tmp_path / "in.npz"), reqs, batch=4, stream=1)
+    outs = W.run_ranks("batcher", 2, 2, str(tmp_path), timeout=300,
+                       device="cuda")
+    served = {i: o for o in outs for i in o["dense_owned"].tolist()}
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    sock = str(tmp_path / "d.sock")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "qwen3_tts_tpu_torch.serve.daemon", "--tiny",
+         "--dtype", "float32", "--model_dir", str(tmp_path), "--batch", "4",
+         "--tp", "2", "--dp", "2", "--decode_chunk", "4", "--python_loop",
+         "--socket", sock], cwd=root, env=dict(os.environ, PYTHONPATH=root),
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+    try:
+        deadline = time.time() + 300
+        while not os.path.exists(sock):
+            assert proc.poll() is None, proc.stdout.read().decode(
+                errors="replace")
+            assert time.time() < deadline, "the socket never appeared"
+            time.sleep(0.1)
+        client = DaemonClient(sock)
+        hdr, blob = client.synthesize(texts[0][0], seed=texts[0][1])
+        frames = []
+        shdr, streamed = client.synthesize(
+            texts[1][0], seed=texts[1][1], stream=True,
+            on_chunk=lambda h, a: frames.append(a) if "chunk" in h else None)
+        proc.send_signal(signal.SIGTERM)
+        out, _ = proc.communicate(timeout=120)
+        log = out.decode(errors="replace")
+        assert proc.returncode == 0, log[-4000:]
+        assert "mesh dp2xtp2 over 4 device(s)" in log
+        assert not os.path.exists(sock)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+    assert hdr["n_tokens"] == len(served[0]["dense_codes0"]) > 0
+    np.testing.assert_array_equal(blob, served[0]["dense_audio0"])
+    assert shdr["n_tokens"] == len(served[1]["dense_codes1"]) > 0
+    np.testing.assert_array_equal(np.concatenate(frames),
+                                  served[1]["dense_segments"])
+    np.testing.assert_array_equal(streamed, served[1]["dense_audio1"])
+
+
+# the int8 tier's least teacher-forced hidden cosine against bf16 at full
+# geometry, random weights (seed 0): the first chip run measured 0.99929
+# over chip_smoke's three texts at 32 greedy steps (PERF.md section 6),
+# so at least that on their first text's first 16 steps; the bound sits
+# below it
+QUALITY_TF_COS_BOUND = 0.999
+
+
+def test_quality_dossier_int8_full_geometry_on_the_card(cuda):
+    """The int8 dossier (qwen3_tts_tpu_torch/tools/quality_check.py) at
+    full geometry on the card, through the served kernels (K3, K2, K1):
+    the teacher-forced hidden drift of the int8 talker stays above the
+    bound; the lengths match."""
+    import dataclasses
+    from qwen3_tts_tpu_torch.config import TTSConfig
+    from qwen3_tts_tpu_torch.io.weights import init_random_params
+    from qwen3_tts_tpu_torch.ops.kernels.talker_step import (
+        talker_decode_step_fused)
+    from qwen3_tts_tpu_torch.tools import quality_check as qc
+    cfg = qc.greedy_config(dataclasses.replace(TTSConfig(), max_tokens=16))
+    params = init_random_params(TTSConfig(), seed=0, dtype=torch.bfloat16,
+                                device="cuda")
+    before = talker_decode_step_fused.launches
+    rep = qc.run_dossier(cfg, params, ["int8"], texts=["Привет, мир!"],
+                         seed=0, n_hidden_steps=16, device="cuda")["int8"]
+    assert talker_decode_step_fused.launches > before
+    assert rep["tf_cos_min"] >= QUALITY_TF_COS_BOUND, rep
+    assert 0.0 <= rep["tf_code0_agree"] <= 1.0, rep

@@ -105,6 +105,14 @@ def run(tmp_path_factory):
         res = one.synthesize(text, language="english", seed=seed)
         want[f"one_codes{i}"], want[f"one_audio{i}"] = (res.codes,
                                                         res.audio_int16)
+    # the one-device engine's kv_cache_dir file of the first prompt
+    one_dir = d / "kv_one"
+    one_dir.mkdir()
+    one._prefix_cache.clear()
+    one.kv_cache_dir = str(one_dir)
+    text, seed = W.ENGINE_REQUESTS[0]
+    one.synthesize(text, language="english", seed=seed)
+    want["dir"], want["jax_engine"] = d, eng
     return want, ranks.result()
 
 
@@ -145,6 +153,49 @@ def test_tp2_streaming_equals_the_blob(run):
     np.testing.assert_array_equal(o["stream_codes"], o["None_codes1"])
     np.testing.assert_array_equal(o["stream_segments"], o["stream_audio"])
     assert len(o["stream_audio"]) == len(o["stream_codes"]) * 1920
+
+
+def test_tp2_kv_cache_file_restores_the_prefilled_codes(run):
+    """A tp 2 engine writes one whole-state file; a fresh tp 2 engine
+    restores it (no prefill) to the first run's codes and audio bit for
+    bit, on both ranks."""
+    _, outs = run
+    for o in outs:
+        assert len(o["kv_files"]) == 1
+        assert int(o["kv_prefills"]) == 0
+        assert len(o["kv_first_codes"]) > 0
+        np.testing.assert_array_equal(o["kv_loaded_codes"],
+                                      o["kv_first_codes"])
+        np.testing.assert_array_equal(o["kv_loaded_audio"],
+                                      o["kv_first_audio"])
+        np.testing.assert_array_equal(o["kv_first_codes"], o["None_codes0"])
+
+
+def test_tp2_kv_cache_file_is_the_one_device_file(run):
+    """The tp 2 file holds the whole state in the one-device engine's
+    format: its kv heads in shard order equal the one-device file's
+    within the tp tolerance (tests/test_torch_parallel.py's f32 atol
+    1e-5), every other field exactly; and the JAX engine reads it."""
+    want, outs = run
+    d = want["dir"]
+    name = str(outs[0]["kv_files"][0])
+    assert sorted(os.listdir(d / "kv_one")) == [name]
+    with np.load(d / "kv" / name) as tp_file, \
+            np.load(d / "kv_one" / name) as one_file:
+        assert sorted(tp_file.files) == sorted(one_file.files)
+        kv_shape = one_file["kv"].shape
+        for k in one_file.files:
+            assert tp_file[k].shape == one_file[k].shape, k
+            if k in ("kv", "hidden"):
+                np.testing.assert_allclose(tp_file[k], one_file[k],
+                                           atol=1e-5, rtol=0, err_msg=k)
+            else:
+                np.testing.assert_array_equal(tp_file[k], one_file[k],
+                                              err_msg=k)
+    import jax
+    state = want["jax_engine"]._load_state_npz(str(d / "kv" / name),
+                                                jax.random.PRNGKey(0))
+    assert state.kv.shape == kv_shape
 
 
 def test_engine_mesh_guard_rails():

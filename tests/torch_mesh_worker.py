@@ -17,7 +17,8 @@ the parent test compares. Modes:
   pos and kv of in.npz) and the int8 code predictor's greedy codes
   (``cp.npz``, hidden, c0e) on this rank's shards;
 - ``engine``: TTSEngine(mesh=...) dense and int8-cp on ENGINE_REQUESTS,
-  whole and (dense) streaming;
+  whole and (dense) streaming, and the dense engine's ``kv_cache_dir``
+  file written and restored by a fresh engine;
 - ``batcher``: ContinuousBatcher(mesh=...) dense and paged, in
   lockstep, on the schedule that write_schedule put in in.npz; each rank
   writes the requests it served (the others resolve to the (None, None)
@@ -139,7 +140,33 @@ def _engine(mesh, io_dir: str) -> dict:
             out["stream_codes"] = res.codes
             out["stream_audio"] = res.audio_int16
             out["stream_segments"] = np.concatenate(segs)
+            out.update(_kv_cache_dir(eng, cfg, params, mesh, io_dir))
     return out
+
+
+def _kv_cache_dir(eng, cfg, params, mesh, io_dir: str) -> dict:
+    """``kv_cache_dir`` under tp: the first request of ENGINE_REQUESTS
+    prefilled and written (tp rank 0 writes the whole state), then a
+    fresh engine restoring it from the file with no prefill."""
+    import torch
+    from qwen3_tts_tpu_torch.engine.engine import TTSEngine
+    kv_dir = os.path.join(io_dir, "kv")
+    os.makedirs(kv_dir, exist_ok=True)
+    text, seed = ENGINE_REQUESTS[0]
+    eng._prefix_cache.clear()
+    eng.kv_cache_dir = kv_dir
+    first = eng.synthesize(text, language="english", seed=seed)
+    fresh = TTSEngine(cfg, params=params, dtype=torch.float32, mesh=mesh)
+    fresh.kv_cache_dir = kv_dir
+    prefills = []
+    real = fresh._prefill_state
+    fresh._prefill_state = lambda *a: prefills.append(1) or real(*a)
+    again = fresh.synthesize(text, language="english", seed=seed)
+    return {"kv_first_codes": first.codes, "kv_first_audio":
+            first.audio_int16, "kv_loaded_codes": again.codes,
+            "kv_loaded_audio": again.audio_int16,
+            "kv_prefills": np.int32(len(prefills)),
+            "kv_files": np.asarray(sorted(os.listdir(kv_dir)))}
 
 
 def _batcher(mesh, io_dir: str) -> dict:
