@@ -35,16 +35,28 @@
    that probe are timed, K3's and K2's launches and per-kernel breakdown
    under torch.profiler (a profiler session slows later chains of
    dependent launches in the process by a few percent).
-3. Streaming, timed before any profile: the same int8 engine renders the
-   three texts in turns non-streaming and streaming with on_chunk (the
-   incremental vocoder stream), then one long request of each past the
-   head chunks (at most 192 tokens, which runs the last decode call and
-   the stream steps up to the EOS-pacing bound); each streamed request
-   must give the non-streaming codes, its pieces its audio, and int16
-   audio within +-1 LSB of the non-streaming audio (the share that
-   differs is printed), and launch K1 (both routes), K2 and K3. Printed:
+3. Chunked prefill, then streaming, timed before any profile. First
+   talker.prefill_chunked on the int8 engine's weights: a 265-row prefix
+   one-shot and in 3 windows of 128 rows, the final hidden and one
+   decode step (K3) after each at cosine >= 0.9999 against one-shot, K1
+   on the tile 4 a talker layer a window at R = 128 (its products' device
+   ms, each prefill's ms), the ValueError of a window grid past the
+   cache. Then the same int8 engine renders the three texts in turns in
+   three modes: non-streaming (the chained vocoder, launched on the
+   device codes buffer before the fetch), window streaming (the default:
+   prefix windows of the codes buffer) and incremental streaming
+   (QWEN3_TTS_ENGINE_STREAM=incremental), each with on_chunk; then one
+   long request of each past the head chunks (at most 192 tokens, which
+   runs the last decode call and the windows or stream steps up to the
+   EOS-pacing bound), then the first text with the chain off; each
+   request must give the chained request's codes, its pieces its audio,
+   and int16 audio within +-1 LSB of the chained request's (the window
+   stream and the unchained request on < 0.01% of the samples: bit for
+   bit on the CPU, but cuBLAS picks its GEMM kernel by the window's row
+   count), and launch K1 (both routes), K2 and K3. Printed:
    first_audio_seconds per text and mode and their medians, the RTF of
-   each mode, the count of pieces. Then the continuous batcher, dense
+   each mode, the count of pieces, the launches of each mode, the
+   unchained request's wall and stages. Then the continuous batcher, dense
    (K5) then paged (K4), serves six requests of at most 48 tokens, two
    of them streaming: each streaming request's segments make up its
    audio, within +-1 LSB of the batcher's own non-streaming vocoding of
@@ -64,8 +76,8 @@
    int8 engine's prefix cache (A, B, A with equal codes and audio, a hit
    under another seed equal to that seed's cold request, a hit under
    max_tokens=5 stopping there, a streaming hit with the whole request's
-   codes, no prefill tile on a hit; decode and prefill stage ms cold and
-   hit printed), its kv_cache_dir file (one written, restored with equal
+   codes, no prefill tile on a hit; decode+vocoder and prefill stage ms
+   cold and hit printed), its kv_cache_dir file (one written, restored with equal
    codes and audio); voice cloning from a prompt dir of 40 seeded frames
    (whole and streamed: equal codes, +-1 LSB; the cloned prefill on the
    tile 4 launches a talker layer at R = 137 rows, the second request a
@@ -151,7 +163,7 @@
    free at the stop. Printed: audio-s per wall-s and first-frame p50 of
    the six clients beside the one-rank daemon's, the phase's seconds and
    K1, K2 and K4 launches summed over the ranks. Then the serving soak
-   (phase_soak, qwen3_tts_tpu_torch/tools/soak_daemon): 12 s of the mixed
+   (phase_soak, qwen3_tts_tpu_torch/tools/soak_daemon): 6 s of the mixed
    request surface (blob, streaming, cloned, capped, cancelled before
    admission and mid-decode; at most 64 tokens a request) through the
    bf16 batcher, dense then paged at depth 2; it must end healthy (every Future resolved, every slot and
@@ -182,7 +194,9 @@
 10. One JSON line of per-kernel results (each kernel's launches on
    its main path, ``launches_mesh``: in phase_mesh, summed over its
    ranks, ``launches_daemon_mesh``: in phase_daemon_mesh, summed over its
-   ranks, ``launches_soak``: in phase_soak; K1, K4 and K5 with
+   ranks, ``launches_soak``: in phase_soak, ``launches_chunked_prefill``:
+   in phase_chunked_prefill's chunked prefill, ``launches_stream``: in
+   phase_stream_engine by mode over the three texts; K1, K4 and K5 with
    ``max_abs_err_tp_shards``), then the card line, then
    {"ok": true, "device": {...}} as the last line.
 
@@ -222,6 +236,12 @@ PARAGRAPH = ("Привет! Как дела? Hello there, this is the port. It r
 CLONE_FRAMES, CLONE_TEXT = 40, "Reference words."
 HBM_BYTES_PER_S = 3.35e12       # H100 SXM, published
 F32_FLOPS = 67e12               # f32 outside the tensor cores, published
+# int16 LSBs, and the share of samples, by which a window stream and an
+# unchained request may differ from the chained request on the card: the
+# incremental stream's contract. cuBLAS picks its f32 GEMM kernel by the
+# row count, so the vocoder's first product already rounds differently
+# at another window width (bit for bit on the CPU)
+WINDOW_LSB, WINDOW_SHARE = 1, 1e-4
 
 
 def card_line() -> str:
@@ -404,6 +424,123 @@ def phase_prefill_tile(eng, card: str) -> None:
           f"the prefill launched the tile {tiles} times")
     check(bool(torch.isfinite(got).all()), "non-finite prefill hidden")
     check(cos >= 0.99, f"prefill on the tile: cosine {cos:.5f} < 0.99")
+
+
+CHUNK = 128                 # the reference's chunked-prefill window
+
+
+def phase_chunked_prefill(eng, card: str, counters: dict) -> dict:
+    """talker.prefill_chunked at full geometry on the int8 engine's
+    weights: a 265-row prefix (256 seeded text ids) prefilled one-shot (K1
+    on the tile at R = 265) and in windows of CHUNK = 128 rows (3 windows,
+    the last zero-padded; K1 on the tile at R = 128, 4 launches a talker
+    layer a window). Held: the final hidden at cosine >= 0.9999 against
+    the one-shot prefill, and one decode step (K3) from each cache on the
+    same feedback row at cosine >= 0.9999; printed: max |diff| of the
+    hidden and of the real KV rows, the tile's launches, each prefill's
+    device ms and the four products' device ms at R = 128 (CUDA events
+    after a warm-up; each prefill also back to back without a graph,
+    paced by the host). A window grid past the cache raises ValueError.
+    Returns the kernels' launches in the chunked prefill."""
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch.models import talker as tk
+    from qwen3_tts_tpu_torch.models import transformer as tfm
+    from qwen3_tts_tpu_torch.ops import quant
+    cfg, tp = eng.cfg.talker, eng._tp
+    geo = tfm.geometry_of(cfg)
+    rng = np.random.default_rng(17)
+    ids = rng.integers(1000, 100000, 256).astype(np.int32)
+    fb = torch.from_numpy(rng.standard_normal((1, cfg.hidden_size)).astype(
+        np.float32) * 0.3).to("cuda", tp["codec_embedding"].dtype)
+
+    def cosine(a, b):
+        return float(torch.nn.functional.cosine_similarity(
+            a.flatten().double(), b.flatten().double(), dim=0))
+
+    with torch.inference_mode():
+        prefix, plen = tk.build_prefix(tp, torch.from_numpy(ids).to("cuda"),
+                                       256)
+        prefix, plen = prefix[None], plen.reshape(1)
+        P = prefix.shape[1]
+        check(P == 265 and int(plen[0]) == 265,
+              f"chunked prefill: a prefix of {P} rows")
+
+        def kv():
+            return tfm.init_kv_cache(geo, 1, cfg.max_seq_len,
+                                     dtype=prefix.dtype, device="cuda")
+
+        def one_shot():
+            return tk.prefill(tp, prefix, plen, kv(), cfg)
+
+        def chunked():
+            return tk.prefill_chunked(tp, prefix, plen, kv(), cfg,
+                                      chunk=CHUNK)
+        out, tiles = {}, {}
+        for name, fn in (("one-shot", one_shot), ("chunked", chunked)):
+            before = _launches(counters)
+            h, cache = fn()
+            torch.cuda.synchronize()
+            tiles[name] = _grew(before, counters)
+            step, _ = tk.decode_step(tp, fb, plen.to(torch.int32),
+                                     cache.clone(), cfg)
+            out[name] = (h.float(), cache, step.float())
+        ms = {name: (time_ms(fn, 3), time_ms(fn, 3, graph=True))
+              for name, fn in (("one-shot", one_shot), ("chunked", chunked))}
+        layer = {k: v[0] for k, v in tp["layers"].items()}
+        g = torch.Generator(device="cuda").manual_seed(17)
+        x, xi, xo = (torch.randn((CHUNK, k), device="cuda", generator=g).to(
+            prefix.dtype) for k in (cfg.hidden_size, cfg.intermediate_size,
+                                    cfg.num_heads * cfg.head_dim))
+        products = {"q|k|v": (x, layer["qkv_proj"]),
+                    "o": (xo, layer["o_proj"]),
+                    "gate|up": (x, layer["gateup_proj"]),
+                    "down": (xi, layer["down_proj"])}
+        prod_ms = {}
+        for name, (xx, w) in products.items():
+            n0 = counters["qmatmul_tile"].launches
+            quant.matmul(xx, w)
+            check(counters["qmatmul_tile"].launches == n0 + 1,
+                  f"chunked prefill: {name} at R = {CHUNK} not on the tile")
+            prod_ms[name] = time_ms(lambda: quant.matmul(xx, w), 20,
+                                    graph=True)
+        S = cfg.max_seq_len
+        try:
+            tk.prefill_chunked(tp, prefix, plen, kv(), cfg, chunk=260)
+            raised = False
+        except ValueError as e:
+            raised = "chunked prefill" in str(e)
+    (h1, kv1, d1), (h2, kv2, d2) = out["one-shot"], out["chunked"]
+    cos, dcos = cosine(h2, h1), cosine(d2, d1)
+    kv_diff = float((kv2[:, :, :, :P].float()
+                     - kv1[:, :, :, :P].float()).abs().max())
+    print(f"chunked prefill: R={P} in {-(-P // CHUNK)} windows of {CHUNK}: "
+          f"final hidden cosine {cos:.7f}, max|diff| "
+          f"{float((h2 - h1).abs().max()):.3e} (scale "
+          f"{float(h1.abs().max()):.3f}); KV rows [0, {P}) max|diff| "
+          f"{kv_diff:.3e}; a decode step after each: cosine {dcos:.7f}, "
+          f"max|diff| {float((d2 - d1).abs().max()):.3e}; tile launches "
+          f"one-shot {tiles['one-shot']['qmatmul_tile']} (R={P}), chunked "
+          f"{tiles['chunked']['qmatmul_tile']} (R={CHUNK}); ms a call back "
+          f"to back "
+          f"(CUDA events, paced by the host's launches) one-shot "
+          f"{ms['one-shot'][0]:.3f}, chunked {ms['chunked'][0]:.3f}; device "
+          f"ms (CUDA-graph replay) one-shot {ms['one-shot'][1]:.3f}, "
+          f"chunked {ms['chunked'][1]:.3f} [{card}]")
+    print(f"chunked prefill: K1 tile at R={CHUNK}, layer 0's weights (warm "
+          f"in L2), device ms (CUDA-graph replay timed by CUDA events after "
+          f"a warm-up) {json.dumps(prod_ms)} [{card}]")
+    layers = cfg.num_layers
+    n1, n2 = (tiles[k]["qmatmul_tile"] for k in ("one-shot", "chunked"))
+    check(n1 == 4 * layers, f"chunked prefill: one-shot tile launches {n1}")
+    check(n2 == 4 * layers * -(-P // CHUNK),
+          f"chunked prefill: chunked tile launches {n2}")
+    check(bool(torch.isfinite(h2).all()), "chunked prefill: non-finite")
+    check(cos >= 0.9999, f"chunked prefill: hidden cosine {cos:.6f}")
+    check(dcos >= 0.9999, f"chunked prefill: decode step cosine {dcos:.6f}")
+    check(raised, f"chunked prefill: 2 windows of 260 > S = {S} did not "
+          "raise its ValueError")
+    return tiles["chunked"]
 
 
 # K3 and K7 check positions at S = 512: the attention's chunks are 64
@@ -707,8 +844,8 @@ def _surface_prefix_cache(eng, card: str, counters: dict) -> None:
     pieces = []
     s_cold, _ = run(TEXTS[0], 0, streaming=True, on_chunk=pieces.append)
     ms = {k: round(1000 * v, 3) for k, v in (
-        ("decode cold", a1.timings["decode"]),
-        ("decode hit", a2.timings["decode"]),
+        ("decode+vocoder cold", a1.timings["decode+vocoder"]),
+        ("decode+vocoder hit", a2.timings["decode+vocoder"]),
         ("prefill cold (streaming)", s_cold.timings["prefill"]),
         ("prefill hit (streaming)", streamed.timings["prefill"]))}
     print(f"prefix cache: A, B, A equal; a seed-5 hit equals the cold "
@@ -1093,36 +1230,58 @@ def int16_delta(got, want) -> tuple:
             float((d > 0).mean()) if d.size else 0.0)
 
 
-def phase_stream_engine(eng, card: str, counters: dict) -> None:
-    """The int8 engine's streaming path at full geometry: each text in
-    turns non-streaming and streaming with on_chunk (one short request of
-    each first, as a warm-up), then one long request of each past the
-    head chunks (LONG_TEXT, at most LONG_TOKENS tokens): its last decode
-    call and the stream steps up to the EOS-pacing bound, trimmed to the
-    token count, run at full geometry."""
+STREAM_MODES = ("plain", "window", "incremental")
+
+
+def phase_stream_engine(eng, card: str, counters: dict) -> dict:
+    """The int8 engine's three request modes at full geometry, in turns on
+    each text: "plain" (non-streaming, the chained vocoder), "window"
+    (streaming with on_chunk, the default prefix windows) and
+    "incremental" (streaming with on_chunk, QWEN3_TTS_ENGINE_STREAM=
+    incremental); one short request of each first, as a warm-up. Then one
+    long request of each past the head chunks (LONG_TEXT, at most
+    LONG_TOKENS tokens): the last decode call, the windows or stream steps
+    up to the EOS-pacing bound, trimmed to the token count. Then the first
+    text once more with the chain off (QWEN3_TTS_FUSED_VOCODER=0's path:
+    fetch, then synthesize_exact), held to the chained request. Returns
+    each mode's launches over the three texts."""
     import numpy as np
     import torch
-    modes = ("plain", "streaming")
+    from qwen3_tts_tpu_torch.engine import engine as tengine
 
-    def run(mode, text, seed, **kw):
+    def run(mode, text, seed, chained=True, **kw):
         pieces = []
-        if mode == "streaming":
+        if mode != "plain":
             kw.update(streaming=True, on_chunk=pieces.append)
         eng._prefix_cache.clear()      # cold requests: each prefills
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        res = eng.synthesize(text, seed=seed, **kw)
-        torch.cuda.synchronize()
+        eng._chained_vocode = chained
+        if mode == "incremental":
+            os.environ["QWEN3_TTS_ENGINE_STREAM"] = "incremental"
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = eng.synthesize(text, seed=seed, **kw)
+            torch.cuda.synchronize()
+        finally:
+            os.environ.pop("QWEN3_TTS_ENGINE_STREAM", None)
+            eng._chained_vocode = True
         return res, pieces, time.perf_counter() - t0
 
+    def held(res, want, label):
+        """The codes equal, and (max |diff|, differing share) of the int16
+        audio against ``want``'s."""
+        check(np.array_equal(res.codes, want.codes),
+              f"{label}: codes differ from the chained request's")
+        return int16_delta(res.audio_int16, want.audio_int16)
+
     def request(i, text, label, **kw):
-        """Both modes in turns; the streamed request is held to the
-        non-streaming one. Returns {mode: (result, launches)}."""
+        """The three modes in turns; each stream is held to the chained
+        request. Returns {mode: (result, launches)}."""
         out, want = {}, None
-        for mode in modes:
-            before = {k: fn.launches for k, fn in counters.items()}
+        for mode in STREAM_MODES:
+            before = _launches(counters)
             res, pieces, wall = run(mode, text, i, **kw)
-            grew = {k: fn.launches - before[k] for k, fn in counters.items()}
+            grew = _grew(before, counters)
             out[mode] = (res, grew)
             line = (f"stream {mode} {label}: n_tokens={res.n_tokens} "
                     f"first_audio_seconds={res.first_audio_seconds:.4f} "
@@ -1135,51 +1294,96 @@ def phase_stream_engine(eng, card: str, counters: dict) -> None:
                 check(grew[k] > 0, f"stream {mode} {label}: {k} was not "
                       "launched")
             if mode == "plain":
+                check("decode+vocoder" in res.timings,
+                      f"stream plain {label}: not chained ({res.timings})")
                 want = res
             else:
-                check(np.array_equal(res.codes, want.codes),
-                      f"stream {label}: codes differ from the "
-                      "non-streaming request's")
                 check(np.array_equal(np.concatenate(pieces),
                                      res.audio_int16),
-                      f"stream {label}: pieces are not the audio")
-                dmax, share = int16_delta(res.audio_int16, want.audio_int16)
+                      f"stream {mode} {label}: pieces are not the audio")
+                dmax, share = held(res, want, f"stream {mode} {label}")
                 line += (f" pieces={len(pieces)} int16 max|diff|={dmax} "
                          f"differing share={share:.6f}")
-                check(dmax <= 1, f"stream {label}: int16 off by {dmax} > "
-                      "1 LSB")
+                check(dmax <= 1 and (mode != "window"
+                                     or share < WINDOW_SHARE),
+                      f"stream {mode} {label}: int16 off by {dmax} on "
+                      f"{share:.6f}")
             print(f"{line} [{card}]")
         return out
 
-    for mode in modes:
+    for mode in STREAM_MODES:
         run(mode, TEXTS[0], 9, max_tokens=16)
+    run("plain", TEXTS[0], 9, chained=False, max_tokens=16)
     for fn in counters.values():
         fn.launches = 0
-    rows = {m: [] for m in modes}
-    per_mode = {m: dict.fromkeys(counters, 0) for m in modes}
+    rows = {m: [] for m in STREAM_MODES}
+    per_mode = {m: dict.fromkeys(counters, 0) for m in STREAM_MODES}
     for i, text in enumerate(TEXTS):
         for mode, (res, grew) in request(i, text, f"request {i}").items():
             rows[mode].append(res)
             for k, v in grew.items():
                 per_mode[mode][k] += v
-    rtf = {m: statistics.median(r.rtf for r in rows[m]) for m in modes}
-    for m in modes:
-        fa = [r.first_audio_seconds for r in rows[m]]
+    rtf = {m: statistics.median(r.rtf for r in rows[m])
+           for m in STREAM_MODES}
+    fa = {m: statistics.median(r.first_audio_seconds for r in rows[m])
+          for m in STREAM_MODES}
+    for m in STREAM_MODES:
         print(f"stream {m}: first_audio_seconds "
-              f"{[round(x, 4) for x in fa]} median "
-              f"{statistics.median(fa):.4f} s; median RTF {rtf[m]:.4f} "
+              f"{[round(r.first_audio_seconds, 4) for r in rows[m]]} "
+              f"median {fa[m]:.4f} s; median RTF {rtf[m]:.4f} "
               f"({rtf[m] / rtf['plain']:.3f}x the non-streaming RTF); "
               f"launches { {k: v for k, v in per_mode[m].items() if v} } "
               f"[{card}]")
-    print(json.dumps({"metric": "stream_first_audio_seconds_p50", **{
-        m: statistics.median(r.first_audio_seconds for r in rows[m])
-        for m in modes}, "card": card}))
+    print(json.dumps({"metric": "stream_first_audio_seconds_p50", **fa,
+                      "card": card}))
     print(json.dumps({"metric": "stream_rtf_p50", **rtf, "card": card}))
     long = request(len(TEXTS), LONG_TEXT, "long request",
                    max_tokens=LONG_TOKENS)
-    n = long["streaming"][0].n_tokens
+    n = long["window"][0].n_tokens
     check(n > sum(eng.head_schedule),
           f"stream long request: {n} tokens end inside the head")
+    W = tengine._chained_voc_window(
+        LONG_TOKENS, eng._encode_text(LONG_TEXT)[1], eng.cfg.sampling)
+    print(f"stream long request: the chain's window {W} tokens for {n} "
+          f"[{card}]")
+    res, _, wall = run("plain", TEXTS[0], 0, chained=False)
+    want = rows["plain"][0]
+    check("vocoder" in res.timings, f"unchained request: {res.timings}")
+    dmax, share = held(res, want, "unchained request 0")
+    print(f"stream unchained request 0: wall={wall:.3f}s against the "
+          f"chained {want.total_seconds:.3f}s; stages "
+          f"{ {k: round(v, 4) for k, v in res.timings.items()} } against "
+          f"{ {k: round(v, 4) for k, v in want.timings.items()} }; int16 "
+          f"max|diff| {dmax} on {share:.6f} [{card}]")
+    check(dmax <= WINDOW_LSB and share < WINDOW_SHARE,
+          f"unchained request: int16 off by {dmax} on {share:.6f}")
+    _vocoder_widths(eng, card)
+    return per_mode
+
+
+def _vocoder_widths(eng, card: str) -> None:
+    """Why the window stream is not bit for bit on the card: 150 seeded
+    codes vocoded in windows of 192 and 256 tokens (the kept samples'
+    int16 gap), and the vocoder's first product (layer 0's q_proj, f32,
+    TF32 off) at 192 and 256 rows (the share of its first 150 rows'
+    elements that differ)."""
+    import numpy as np
+    import torch
+    from qwen3_tts_tpu_torch.models import vocoder as voc
+    codes = np.random.default_rng(3).integers(0, 2048, (150, 16)).astype(
+        np.int32)
+    a, b = (eng._voc(voc.pad_window(codes, W, "cuda"))[
+        0, :150 * 1920].cpu().numpy() for W in (192, 256))
+    dmax, share = int16_delta(a, b)
+    w = eng._vp["pre"]["layers"]["q_proj"][0]
+    x = torch.randn((256, w.shape[0]), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(3))
+    with voc._fp32_exact():
+        d = (x[:192] @ w)[:150] - (x @ w)[:150]
+    print(f"vocoder widths 192 against 256 over 150 codes: int16 max|diff| "
+          f"{dmax} on {share:.6f}; layer 0 q_proj at 192 against 256 rows: "
+          f"{float((d != 0).float().mean()):.4f} of the elements differ, "
+          f"max {float(d.abs().max()):.3e} [{card}]")
 
 
 def phase_stream_batcher(params, card: str, counters: dict) -> None:
@@ -3385,7 +3589,7 @@ DAEMON_FLAGS = ("--batch", "4", "--tp", "1", "--dp", "2", "--decode_chunk",
 QUALITY_STEPS = 32
 # the soak's submissions last SOAK_SECONDS; its requests stop at
 # SOAK_MAX_TOKENS, so that the drain after them stays short
-SOAK_SECONDS = 12.0
+SOAK_SECONDS = 6.0
 SOAK_MAX_TOKENS = 64
 
 
@@ -3780,12 +3984,13 @@ def main() -> int:
                phase_kv_int8(card, k5["shapes"])]
     phase_prefill_tile(eng, card)
     counters = launch_counters()
+    chunked = phase_chunked_prefill(eng, card, counters)
     # the int8-KV probe's steps and the streaming phases are timed before
     # the first profiler session
     kv8 = phase_bench_kv_int8(card, counters)
     params = init_random_params(TTSConfig(), seed=0,
                                 dtype=torch.bfloat16, device="cuda")
-    phase_stream_engine(eng, card, counters)
+    stream = phase_stream_engine(eng, card, counters)
     phase_stream_batcher(params, card, counters)
     phase_chunked_vocoder(eng, card)
     phase_engine_surface(eng, params, card, counters)
@@ -3817,6 +4022,9 @@ def main() -> int:
         k["launches_mesh"] = mesh.get(k["name"], 0)
         k["launches_daemon_mesh"] = daemon_mesh.get(k["name"], 0)
         k["launches_soak"] = soaked.get(k["name"], 0)
+        k["launches_chunked_prefill"] = chunked.get(k["name"], 0)
+        k["launches_stream"] = {m: n.get(k["name"], 0)
+                                for m, n in stream.items()}
         if k["name"] in tp_err:
             k["max_abs_err_tp_shards"] = tp_err[k["name"]]
     print(f"chip_smoke: every phase passed in "

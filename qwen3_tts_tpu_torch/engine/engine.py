@@ -10,13 +10,23 @@ and, with ``kv_cache_dir`` set, in an npz file the JAX engine reads too;
 a request decodes a copy of it, since the loop updates the KV cache and
 the codes buffer in place. ``prompt_dir`` clones a voice: the reference
 transcript and codec frames join the prefix (models/talker.
-build_prefix_cloned). Non-streaming requests vocode through
-``vocoder.synthesize_exact``: one window of voc_bucket(n + 1) tokens up to
-256 tokens, left-context chunks past that. ``streaming=True`` decodes the
-head in chunks of 8 and 56 tokens, then the rest in one call, and hands
-each piece of audio to ``on_chunk`` as soon as it is final, through the
-incremental vocoder stream (models/vocoder_stream: O(new tokens) an
-emission, within +-1 LSB of the non-streaming audio).
+build_prefix_cloned). A non-streaming request launches the vocoder on
+the device codes buffer, padded to voc_bucket(EOS-pacing bound + 1)
+tokens, right after the decode and before any host read (the chain;
+``QWEN3_TTS_FUSED_VOCODER=0`` turns it off), then fetches the token
+count, the codes and the audio together; without the chain, or past the
+largest vocoder bucket, it fetches the codes and vocodes them through
+``vocoder.synthesize_exact`` (one window of voc_bucket(n + 1) tokens up
+to 256 tokens, left-context chunks past that). ``streaming=True`` decodes
+the head in chunks of 8 and 56 tokens, then the rest in one call, and
+hands each piece of audio to ``on_chunk`` as soon as it is final. How it
+vocodes is read from ``QWEN3_TTS_ENGINE_STREAM`` at each call:
+"window" (the default) vocodes prefix windows of the codes buffer and
+keeps each window's new samples: the non-streaming audio wherever the
+vocoder's sums do not depend on the window's width (bit for bit on the
+CPU; on the card cuBLAS picks its GEMM kernel by the row count, within
++-1 LSB); "incremental" rides the incremental vocoder stream (models/
+vocoder_stream: O(new tokens) an emission, within +-1 LSB of it).
 ``SynthesisResult.first_audio_seconds`` is the wall time until the first
 samples reach the host. With ``quantize="int8"`` (or int8 trees in
 ``params``) the decode loop runs the hand-written kernels K1 (int8
@@ -44,7 +54,9 @@ import torch
 
 from qwen3_tts_tpu_torch.config import (
     SAMPLE_RATE,
+    SAMPLES_PER_TOKEN,
     SUPPORTED_LANGUAGES,
+    VOC_CHUNK_SIZE,
     SamplingConfig,
     TTSConfig,
 )
@@ -91,16 +103,46 @@ def _bucket(n: int) -> int:
 
 
 def _pacing_bound(budget_cap: int, n_text: int,
-                  scfg: SamplingConfig) -> int:
+                  scfg: Optional[SamplingConfig] = None) -> int:
     """Tightest known bound on generated tokens. For n_text > 0 the
     EOS-pacing force (progress > eos_force_progress, ops/sampling.py)
     gives n <= expected_tokens_per_text_token * eos_force_progress *
-    n_text + 1; n_text == 0 disables pacing, so only the budget bounds
-    the decode."""
+    n_text + 1 (the reference defaults when ``scfg`` is None); n_text == 0
+    disables pacing, so only the budget bounds the decode."""
     if n_text <= 0:
         return budget_cap
+    scfg = scfg or SamplingConfig()
     mult = scfg.expected_tokens_per_text_token * scfg.eos_force_progress
     return min(budget_cap, int(math.ceil(mult * n_text)) + 2)
+
+
+def _chained_voc_window(budget_cap: int, n_text: int,
+                        scfg: Optional[SamplingConfig] = None) -> int:
+    """The chained non-streaming vocoder's window (tokens): the bucket of
+    the pacing bound plus one zero-code lookahead token."""
+    return voc.voc_bucket(_pacing_bound(budget_cap, n_text, scfg) + 1)
+
+
+STREAM_MODES = ("window", "incremental")
+
+
+def _stream_mode() -> str:
+    """The engine's streaming mode, read at each call:
+    ``QWEN3_TTS_ENGINE_STREAM``, "window" by default."""
+    mode = os.environ.get("QWEN3_TTS_ENGINE_STREAM", "window")
+    if mode not in STREAM_MODES:
+        raise ValueError(f"QWEN3_TTS_ENGINE_STREAM={mode!r}: expected one "
+                         f"of {STREAM_MODES}")
+    return mode
+
+
+def _to_host(*ts: torch.Tensor) -> List[torch.Tensor]:
+    """Copies of device tensors on the host, started together
+    (non-blocking) and waited for once."""
+    out = [t.to("cpu", non_blocking=True) for t in ts]
+    if ts[0].is_cuda:
+        torch.cuda.current_stream(ts[0].device).synchronize()
+    return out
 
 
 def vocode(vp: Dict, codes: np.ndarray, cfg, device) -> np.ndarray:
@@ -236,6 +278,10 @@ class TTSEngine:
         # bank playout headroom, then the rest in one run_steps call
         self.head_schedule = (8, 56)
         self._stream_stepper = vstream.StreamStepper(c.vocoder)
+        # (1, W, 16) int32 codes on the device -> (1, W * 1920) int16 there
+        self._voc = voc.int16_decoder(self._vp, c.vocoder)
+        self._chained_vocode = (
+            os.environ.get("QWEN3_TTS_FUSED_VOCODER", "1") != "0")
         # post-prefill states by prefix, least recently used first
         self._prefix_cache: "OrderedDict[tuple, gen.GenState]" = \
             OrderedDict()
@@ -521,11 +567,14 @@ class TTSEngine:
         ``max_tokens`` caps this request's tokens. ``on_chunk`` (with
         ``streaming=True``) is called with each np.int16 piece of audio as
         soon as it is final; the pieces concatenate to ``audio_int16``.
-        Codes do not depend on ``streaming``. The WAV is written when
-        ``output`` is given and audio was generated."""
+        Codes do not depend on ``streaming``, nor, on the CPU, does the
+        audio in the default "window" stream mode (``_stream_mode``). The
+        WAV is written when ``output`` is given and audio was
+        generated."""
         if language not in SUPPORTED_LANGUAGES:
             raise ValueError(f"unsupported language {language!r}; expected "
                              f"one of {SUPPORTED_LANGUAGES}")
+        mode = _stream_mode() if streaming else None
         budget = self.cfg.max_tokens
         if max_tokens is not None:
             if max_tokens < 1:
@@ -549,7 +598,29 @@ class TTSEngine:
             return self._prefill_cloned(ids, n_text, pace_n, ref_codes,
                                         seed, budget)
 
-        if not streaming:
+        chained_W = _chained_voc_window(budget, pace_n, self.cfg.sampling)
+        if (not streaming and self._chained_vocode
+                and chained_W <= voc.VOC_BUCKETS[-1]):
+            with _stage(timings, "decode+vocoder"):
+                state = self._run(prefill(), budget)
+                # launched before any host read: the fetch below waits
+                # for the decode and the vocoder together. Rows past n are
+                # zero codes, so causality makes audio[:n * 1920] that of
+                # a window of voc_bucket(n + 1) tokens (up to the order of
+                # sums, which on the card depends on the width)
+                out = self._voc(voc.pad_codes(state.codes, chained_W))
+                n_h, codes_h, audio_h = _to_host(state.n_codes[:1],
+                                                 state.codes[0], out[0])
+                n = int(n_h[0])
+                codes = codes_h[:n].numpy()
+                audio = audio_h[:n * SAMPLES_PER_TOKEN].numpy()
+                if n >= chained_W:
+                    # no lookahead row for the last token: a decode past
+                    # the pacing bound, which the EOS force rules out
+                    # unless the loop was replaced (tests)
+                    audio = self.vocode(codes)
+            first = time.perf_counter() - t_start
+        elif not streaming:
             with _stage(timings, "decode"):
                 state = self._run(prefill(), budget)
                 n = int(state.n_codes[0])
@@ -562,9 +633,11 @@ class TTSEngine:
                 # the first head chunk runs with the prefill
                 state = self._run(prefill(),
                                   min(self.head_schedule[0], budget))
+            stream = (self._stream_window if mode == "window"
+                      else self._stream)
             with _stage(timings, "decode+vocoder"):
-                audio, n, codes, first = self._stream(state, budget, pace_n,
-                                                      on_chunk, t_start)
+                audio, n, codes, first = stream(state, budget, pace_n,
+                                                on_chunk, t_start)
         audio = voc.to_int16(audio)
         if output and len(audio):
             wav_io.write_wav(output, audio)
@@ -576,15 +649,106 @@ class TTSEngine:
             rtf=total / seconds if seconds > 0 else float("inf"),
             first_audio_seconds=first if n > 0 else None)
 
+    def _stream_window(self, state, budget: int, pace_n: int, on_chunk,
+                       t_start: float):
+        """Streaming in prefix windows ("window" mode, the default): after
+        each head chunk the vocoder decodes codes[:, :W] with W =
+        voc_bucket(decoded), and the samples of tokens [rendered, decoded -
+        1) are kept: the last decoded token is the kept tokens' lookahead.
+        After the last decode call the windows up to the EOS-pacing bound
+        are launched before the token count is read, each trimmed to it
+        (a window past it is never fetched); past the bound, host windows
+        zero-padded to voc_bucket(end + 1). Rows past the token count are
+        zero codes, so every kept sample equals the non-streaming decode's
+        where the vocoder's sums do not depend on the width (bit for bit
+        on the CPU, within +-1 LSB on the card). A window reads the codes
+        buffer, which the next decode call writes in place, in launch order
+        on the one CUDA stream.
+        Returns (int16 audio, n, codes, first-audio seconds)."""
+        U = SAMPLES_PER_TOKEN
+        T_buf = int(state.codes.shape[1])
+        pending: List[list] = []   # [samples of the kept tokens, start, size]
+        chunks: List[np.ndarray] = []
+        rendered = decoded = flushed = 0
+        first = None
+
+        def launch(window: torch.Tensor, end: int) -> None:
+            nonlocal rendered
+            out = self._voc(window)[0, rendered * U:end * U]
+            pending.append([out, rendered, end - rendered])
+            rendered = end
+
+        def flush(n_known: int) -> None:
+            """Fetch the launched windows in order, trimming each to the
+            known token count, and hand each piece to on_chunk."""
+            nonlocal flushed, first
+            while flushed < len(pending):
+                out, start, size = pending[flushed]
+                flushed += 1
+                keep = min(size, max(n_known - start, 0))
+                if keep <= 0:
+                    continue
+                a = out[:keep * U].cpu().numpy()
+                chunks.append(a)
+                if first is None:
+                    first = time.perf_counter() - t_start
+                if on_chunk is not None:
+                    on_chunk(a)
+
+        done = False
+        for ci, step_budget in enumerate(self.head_schedule):
+            step_budget = min(step_budget, budget - decoded)
+            if step_budget <= 0:
+                break
+            if ci > 0:
+                state = self._run(state, step_budget)
+            decoded += step_budget
+            if decoded - 1 > rendered:
+                launch(state.codes[:, :min(voc.voc_bucket(decoded), T_buf)],
+                       decoded - 1)
+                if first is None:
+                    # the first window's samples reach the host here
+                    pending[-1][0] = pending[-1][0].cpu()
+                    first = time.perf_counter() - t_start
+            if on_chunk is None:
+                # no consumer: no status read; rows past an EOS inside the
+                # chunk are zeros, trimmed by the last flush
+                continue
+            done, n_now = self._status(state)
+            flush(min(n_now if done else decoded, rendered))
+            if done:
+                break
+        if not done:
+            if decoded < budget:
+                state = self._run(state, budget - decoded)
+            bound = min(_pacing_bound(budget, pace_n, self.cfg.sampling),
+                        T_buf)
+            while rendered < bound - 1:
+                end = min(rendered + VOC_CHUNK_SIZE, bound - 1)
+                launch(state.codes[:, :min(voc.voc_bucket(end + 1), T_buf)],
+                       end)
+        n = int(state.n_codes[0])
+        codes = state.codes[0, :n].cpu().numpy()
+        while rendered < n:
+            # past the bound (or the buffer): the lookahead row is a zero
+            # code beyond the device buffer
+            end = min(rendered + VOC_CHUNK_SIZE, n)
+            launch(voc.pad_window(codes, voc.voc_bucket(end + 1),
+                                  self.device), end)
+        flush(n)
+        audio = (np.concatenate(chunks) if chunks
+                 else np.zeros((0,), np.int16))
+        return audio, n, codes, first
+
     def _stream(self, state, budget: int, pace_n: int, on_chunk,
                 t_start: float):
-        """Streaming on models/vocoder_stream: after each head chunk the
-        stream is advanced over the chunk's new final frames in
-        StreamStepper quanta, O(new tokens) wherever it sits; after the
-        last decode call the steps up to the EOS-pacing bound, plus the
-        zero-code frame that flushes the stream's lag of output_crop
-        samples, are launched before the token count is read, and trimmed
-        to it. The kept samples equal the non-streaming decode within the
+        """Streaming on models/vocoder_stream ("incremental" mode): after
+        each head chunk the stream is advanced over the chunk's new final
+        frames in StreamStepper quanta, O(new tokens) wherever it sits;
+        after the last decode call the steps up to the EOS-pacing bound,
+        plus the zero-code frame that flushes the stream's lag of
+        output_crop samples, are launched before the token count is read,
+        and trimmed to it. The kept samples equal the non-streaming decode within the
         stream contract (+-1 LSB). The stream's position is a host int.
         ``pace_n``: the text tokens the decode paces EOS on (the target's
         alone for a cloned request). Returns (int16 audio, n, codes,

@@ -228,6 +228,38 @@ def prefill(params: dict, prefix: torch.Tensor, prefix_len: torch.Tensor,
     return last, kv
 
 
+def prefill_chunked(params: dict, prefix: torch.Tensor,
+                    prefix_len: torch.Tensor, kv_cache: torch.Tensor,
+                    cfg: TalkerConfig, chunk: int = 128):
+    """Block-wise prefill in windows of ``chunk`` tokens (the reference's
+    128-token chunked prefill): the prefix zero-padded to whole windows,
+    each window through tfm.forward_window, so attention holds chunk x
+    (offset + chunk) scores, not P x P. Causal masking makes it the
+    one-shot ``prefill`` up to the order of sums. Raises ValueError when
+    the windows would write past the dense cache's S. Returns (hidden at
+    the last real position after the final norm (B, H), kv_cache filled
+    in place)."""
+    geo = tfm.geometry_of(cfg)
+    B, P, _ = prefix.shape
+    n_chunks = -(-P // chunk)
+    S = kv_cache.shape[3]
+    if n_chunks * chunk > S:
+        raise ValueError(
+            f"chunked prefill needs n_chunks*chunk <= kv capacity: "
+            f"{n_chunks}*{chunk} > {S} (prefix_pad={P})")
+    prefix = torch.nn.functional.pad(prefix, (0, 0, 0, n_chunks * chunk - P))
+    hs = []
+    for i in range(n_chunks):
+        h, kv_cache = tfm.forward_window(
+            params["layers"], prefix[:, i * chunk:(i + 1) * chunk],
+            i * chunk, kv_cache, geo)
+        hs.append(h)
+    h = tfm.rms_norm(torch.cat(hs, dim=1), params["final_norm"],
+                     cfg.rms_norm_eps)
+    last = h[torch.arange(B, device=h.device), prefix_len.long() - 1]
+    return last, kv_cache
+
+
 def _fused_step_ok(params: dict, B: int, mesh=None) -> bool:
     """The fused decode step (K3) applies to the fused-int8 layer layout
     of ops/quant.quantize_talker at 1 <= B <= talker_step.MAX_B, off a tp

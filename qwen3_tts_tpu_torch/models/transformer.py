@@ -225,6 +225,34 @@ def forward_prefill(params: dict, x: torch.Tensor, positions: torch.Tensor,
                                     attn_mask, geo, kv_cache, mesh)
 
 
+def forward_window(params: dict, x: torch.Tensor, offset: int,
+                   kv_cache: torch.Tensor, geo: TransformerGeometry):
+    """All layers over a window of C tokens x (B, C, H) at global
+    positions [offset, offset + C): K/V land in kv_cache[:, :, :, offset:
+    offset + C] (in place), and attention is causal over [0, offset + C)
+    of the cache. The block-wise prefill's step (talker.prefill_chunked).
+    Returns (hidden (B, C, H) before the final norm, kv_cache)."""
+    B, C, _ = x.shape
+    end = offset + C
+    if offset < 0 or end > kv_cache.shape[3]:
+        raise ValueError(f"forward_window: rows [{offset}, {end}) outside "
+                         f"the cache's {kv_cache.shape[3]}")
+    positions = torch.arange(offset, end, device=x.device)
+    cos, sin = rope_cos_sin(positions.expand(B, C), geo.head_dim,
+                            geo.rope_theta)
+    keys = torch.arange(end, device=x.device)
+    mask = (keys[None, :] <= positions[:, None]).expand(B, C, end)
+    h = x
+    for li, layer in enumerate(_layers(params)):
+        def attend(q, k, v, li=li):
+            kv_cache[li, 0, :, offset:end] = k.to(kv_cache.dtype)
+            kv_cache[li, 1, :, offset:end] = v.to(kv_cache.dtype)
+            return gqa_attention(q, kv_cache[li, 0, :, :end],
+                                 kv_cache[li, 1, :, :end], mask, geo)
+        h = _block(layer, h, geo, cos, sin, attend)
+    return h, kv_cache
+
+
 def causal_mask(batch: int, seq_len: int, lengths: torch.Tensor):
     """(B, P, P) bool: causal AND key position < length."""
     idx = torch.arange(seq_len, device=lengths.device)

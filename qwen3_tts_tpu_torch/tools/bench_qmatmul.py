@@ -3,7 +3,8 @@ NVIDIA GPU at the shapes the slice gives it: codec_head at one row, the
 code predictor's 2-token prefill products at R = 2 and 8 (q|k|v and
 gate|up as the groups that share their rows, down alone), and the talker
 prefill's four products (q|k|v, o, gate|up, down) at the slice's R = 41
-prefix rows and the largest text bucket's 265, q|k|v at 73 too.
+prefix rows and the largest text bucket's 265, q|k|v at 73 too, and at
+the 128 rows of a chunked-prefill window (talker.prefill_chunked).
 
 Each case is timed as a decode step meets it, with weights from HBM: the
 calls take in turn copies of the case's weights that together exceed the
@@ -50,7 +51,11 @@ CASES = (("codec_head", 1, 1024, [3072]),
          ("talker prefill q|k|v R=265", 265, 1024, [4096]),
          ("talker prefill o R=265", 265, 2048, [1024]),
          ("talker prefill gate|up R=265", 265, 1024, [6144]),
-         ("talker prefill down R=265", 265, 3072, [1024]))
+         ("talker prefill down R=265", 265, 3072, [1024]),
+         ("talker chunked prefill q|k|v R=128", 128, 1024, [4096]),
+         ("talker chunked prefill o R=128", 128, 2048, [1024]),
+         ("talker chunked prefill gate|up R=128", 128, 1024, [6144]),
+         ("talker chunked prefill down R=128", 128, 3072, [1024]))
 SEED = 1
 L2_COPIES_BYTES = 64 << 20     # more than the 50 MB L2 (H100 SXM)
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published

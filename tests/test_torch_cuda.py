@@ -685,28 +685,78 @@ def test_talker_merged_kernel_matches_plain_and_k3(cuda, vec_merged):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
-def test_streaming_engine_on_the_card(cuda):
+def test_streaming_engine_on_the_card(cuda, monkeypatch):
     """Streaming synthesis at tiny geometry on the card (bf16 talker; the
-    vocoder in f32, TF32 off), up to 80 tokens: the codes equal
-    the non-streaming codes, the on_chunk pieces make up the audio, and
-    the int16 audio is within +-1 LSB of the non-streaming audio (the
-    stream adds up its attention in another order, and cuDNN may pick
-    another convolution algorithm for another length)."""
+    vocoder in f32, TF32 off), up to 80 tokens, in the window mode (the
+    default) and the incremental mode: the codes equal the non-streaming
+    (chained) request's, the on_chunk pieces make up the audio, and the
+    int16 audio is within +-1 LSB of the non-streaming audio (the
+    incremental stream adds up its attention in another order; cuBLAS and
+    cuDNN pick their kernels by shape, so another window width rounds
+    differently)."""
     from qwen3_tts_tpu_torch import config as pconfig
     from qwen3_tts_tpu_torch.engine.engine import TTSEngine
     eng = TTSEngine(pconfig.tiny_tts_config(max_tokens=80), device=cuda)
     text = "Hello from the port, twice over."
     want = eng.synthesize(text, seed=1)
-    pieces = []
-    res = eng.synthesize(text, seed=1, streaming=True,
-                         on_chunk=pieces.append)
-    np.testing.assert_array_equal(res.codes, want.codes)
-    np.testing.assert_array_equal(np.concatenate(pieces), res.audio_int16)
-    assert res.audio_int16.shape == want.audio_int16.shape
-    delta = np.abs(res.audio_int16.astype(np.int32)
-                   - want.audio_int16.astype(np.int32))
-    assert delta.max() <= 1, delta.max()
-    assert res.first_audio_seconds is not None
+    for mode in ("window", "incremental"):
+        monkeypatch.setenv("QWEN3_TTS_ENGINE_STREAM", mode)
+        pieces = []
+        res = eng.synthesize(text, seed=1, streaming=True,
+                             on_chunk=pieces.append)
+        np.testing.assert_array_equal(res.codes, want.codes)
+        np.testing.assert_array_equal(np.concatenate(pieces),
+                                      res.audio_int16)
+        assert res.audio_int16.shape == want.audio_int16.shape
+        delta = np.abs(res.audio_int16.astype(np.int32)
+                       - want.audio_int16.astype(np.int32))
+        assert delta.max() <= 1, (mode, delta.max())
+        assert res.first_audio_seconds is not None
+
+
+# the window stream's windows over 150 codes: (kept tokens [start, end),
+# the rows decoded when it is launched, its width): after the head
+# chunks of 8 and 56 tokens (the last decoded token is the lookahead,
+# rows past it still zero), a tail window once the decode ended, and the
+# last tokens
+STREAM_WINDOWS = ((0, 7, 8, 64), (7, 63, 64, 64), (63, 127, 150, 128),
+                  (127, 150, 150, 192))
+
+
+@pytest.mark.parametrize("path", ["chained", "window"])
+def test_vocoder_windows_full_geometry_on_the_card(cuda, path):
+    """The engine's vocoder windows at full vocoder geometry (random
+    weights, seed 0) on 150 seeded codes, against synthesize_exact's
+    window of voc_bucket(151) = 192 tokens: "chained", one window of the
+    widest bucket (320) zero-padded past the codes, as a chained request
+    launches it; "window", the window stream's prefix windows
+    (STREAM_WINDOWS), each keeping its tokens' samples. int16 within
+    chip_smoke.WINDOW_LSB on less than chip_smoke.WINDOW_SHARE of the
+    samples (the incremental stream's contract: cuBLAS picks its f32 GEMM
+    kernel by the row count, so another width rounds differently)."""
+    import chip_smoke
+    from qwen3_tts_tpu_torch.config import SAMPLES_PER_TOKEN, VocoderConfig
+    from qwen3_tts_tpu_torch.io.weights import init_vocoder_params
+    from qwen3_tts_tpu_torch.models import vocoder as voc
+    cfg = VocoderConfig()
+    dec = voc.int16_decoder(init_vocoder_params(cfg, 0, device=cuda), cfg)
+    n, U = 150, SAMPLES_PER_TOKEN
+    codes = np.random.default_rng(5).integers(0, 2048, (n, 16)).astype(
+        np.int32)
+    want = voc.synthesize_exact(dec, codes, device=cuda)
+    if path == "chained":
+        got = dec(voc.pad_window(codes, voc.VOC_BUCKETS[-1], cuda))
+        got = got[0, :n * U].cpu().numpy()
+    else:
+        got = np.concatenate([
+            dec(voc.pad_window(codes[:rows], W, cuda))[
+                0, start * U:end * U].cpu().numpy()
+            for start, end, rows, W in STREAM_WINDOWS])
+    assert got.shape == want.shape == (n * U,)
+    delta = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    share = float((delta > 0).mean())
+    assert delta.max() <= chip_smoke.WINDOW_LSB, (delta.max(), share)
+    assert share < chip_smoke.WINDOW_SHARE, share
 
 
 def test_int8_cp_engine_and_prefix_cache_on_the_card(cuda):

@@ -1,6 +1,8 @@
 """Streaming synthesis in the port's TTSEngine (``streaming=True``,
-``on_chunk``, on models/vocoder_stream), on the CPU at tiny geometry,
-int8 and bf16:
+``on_chunk``) in its incremental mode (``QWEN3_TTS_ENGINE_STREAM=
+incremental``, on models/vocoder_stream; the default window mode is
+tests/test_torch_stream_window.py's), on the CPU at tiny geometry, int8
+and bf16:
 
 - the pieces handed to on_chunk concatenate to ``audio_int16``; the
   codes equal the non-streaming request's (the same request decoded in
@@ -29,6 +31,11 @@ def engines():
     cfg = pconfig.tiny_tts_config(max_tokens=80)
     return {"int8": tengine.TTSEngine(cfg, quantize="int8", device="cpu"),
             "bf16": tengine.TTSEngine(cfg, device="cpu")}
+
+
+@pytest.fixture(autouse=True)
+def incremental(monkeypatch):
+    monkeypatch.setenv("QWEN3_TTS_ENGINE_STREAM", "incremental")
 
 
 def _stream(eng, text, **kw):
