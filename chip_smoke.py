@@ -1404,19 +1404,13 @@ def phase_stream_batcher(params, card: str, counters: dict) -> None:
         b = ContinuousBatcher(cfg, params, batch_size=4, decode_chunk=16,
                               device="cuda", **kw)
         pieces = {i: [] for i in streaming}
-        first = {}
-
-        def sink(i):
-            def on_chunk(seg):
-                first.setdefault(i, time.perf_counter())
-                pieces[i].append(seg)
-            return on_chunk
         for fn in counters.values():
             fn.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         futs = [b.submit(*bench_e2e.encode_text(t), seed=i, max_tokens=48,
-                         on_chunk=sink(i) if i in streaming else None)
+                         on_chunk=(pieces[i].append if i in streaming
+                                   else None))
                 for i, t in enumerate(BATCH_TEXTS)]
         steps = 0
         while not all(f.done() for f in futs):
@@ -1445,11 +1439,11 @@ def phase_stream_batcher(params, card: str, counters: dict) -> None:
             dmax, share = int16_delta(audio, want)
             print(f"stream {label} batcher request {i}: n_tokens="
                   f"{len(codes)} segments={len(pieces[i])} first segment "
-                  f"{first[i] - r.t_submit:.4f} s after submit ("
-                  f"{first[i] - r.t_admit:.4f} s after admission), done "
-                  f"{r.t_done - r.t_submit:.4f} s; int16 max|diff| {dmax} "
-                  f"against its non-streaming vocoding, differing share "
-                  f"{share:.6f} [{card}]")
+                  f"{r.t_first_audio - r.t_submit:.4f} s after submit ("
+                  f"{r.t_first_audio - r.t_admit:.4f} s after admission), "
+                  f"done {r.t_done - r.t_submit:.4f} s; int16 max|diff| "
+                  f"{dmax} against its non-streaming vocoding, differing "
+                  f"share {share:.6f} [{card}]")
             check(dmax <= 1, f"stream {label} batcher: request {i} off by "
                   f"{dmax} > 1 LSB")
         check(all(r is None for r in b._slot_req),
@@ -3962,10 +3956,11 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"python {sys.version.split()[0]}")
     from qwen3_tts_tpu_torch.ops.kernels import _build
-    t0 = time.perf_counter()
+    from qwen3_tts_tpu_torch.utils import profiling
     _build.load()
-    print(f"kernels built+loaded in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {_build.build_seconds} s) -> {_build.library_path()}")
+    build = profiling.entries("build")[-1]
+    print(f"kernels built+loaded in {build.seconds:.1f} s "
+          f"(nvcc ran: {build.attrs['nvcc']}) -> {_build.library_path()}")
 
     from qwen3_tts_tpu_torch.config import TTSConfig
     from qwen3_tts_tpu_torch.engine.engine import TTSEngine

@@ -29,6 +29,7 @@ from qwen3_tts_tpu_torch.models import code_predictor as cp
 from qwen3_tts_tpu_torch.models import talker as tk
 from qwen3_tts_tpu_torch.models import transformer as tfm
 from qwen3_tts_tpu_torch.ops import sampling as smp
+from qwen3_tts_tpu_torch.utils import profiling
 
 # steps between host reads of ``done`` (each read waits for the device)
 DONE_CHECK_STRIDE = 8
@@ -172,13 +173,16 @@ def _loop_body(state: GenState, talker_params: dict, cp_params: dict,
 
 
 def run_steps(talker_params: dict, cp_params: dict, state: GenState,
-              cfg: TTSConfig, max_steps: int, mesh=None) -> GenState:
+              cfg: TTSConfig, max_steps: int, mesh=None,
+              stats: Optional[dict] = None) -> GenState:
     """Advance the loop by ``max_steps`` tokens, or fewer once every row
-    is done. ``done`` is read back only every DONE_CHECK_STRIDE steps, so
-    up to that many steps past the end may run: they change nothing,
-    because every row is frozen. ``mesh``: the tp mesh of sharded
-    weights and state; every rank of a tp group stops at the same step,
-    as its ``done`` is the same."""
+    is done. ``done`` is read back only every DONE_CHECK_STRIDE steps
+    (each read the span ``done_read``), so up to that many steps past the
+    end may run: they change nothing, because every row is frozen.
+    ``mesh``: the tp mesh of sharded weights and state; every rank of a
+    tp group stops at the same step, as its ``done`` is the same.
+    ``stats``, if given, receives the steps run (``steps``) and the
+    ``done`` reads (``done_reads``)."""
     dev = state.hidden.device
     tts_pad_embed = tk.embed_text(
         talker_params, torch.tensor([TTS_PAD_TOKEN_ID], device=dev),
@@ -189,11 +193,18 @@ def run_steps(talker_params: dict, cp_params: dict, state: GenState,
         rope_table = tfm.rope_cos_sin(
             torch.arange(state.kv.shape[3], device=dev), tcfg.head_dim,
             tcfg.rope_theta)
+    steps = reads = 0
     for i in range(int(max_steps)):
-        if i % DONE_CHECK_STRIDE == 0 and bool(state.done.all()):
-            break
+        if i % DONE_CHECK_STRIDE == 0:
+            reads += 1
+            with profiling.span("done_read"):
+                if bool(state.done.all()):
+                    break
         state = _loop_body(state, talker_params, cp_params, tts_pad_embed,
                            cfg, rope_table, mesh)
+        steps += 1
+    if stats is not None:
+        stats.update(steps=steps, done_reads=reads)
     return state
 
 

@@ -30,6 +30,7 @@ from qwen3_tts_tpu_torch.config import (
 )
 from qwen3_tts_tpu_torch.models import transformer as tfm
 from qwen3_tts_tpu_torch.models.module import WeightTree
+from qwen3_tts_tpu_torch.utils import profiling
 
 # fixed vocoder window buckets (tokens)
 VOC_BUCKETS = (64, 128, 192, 256, 320)
@@ -223,13 +224,15 @@ def synthesize_exact(decode_fn, codes: np.ndarray, max_single: int = 256,
 
     ``decode_fn`` takes (1, W, 16) int32 on ``device`` and returns (1,
     W * 1920) samples there (f32, or int16 from int16_decoder). The n == 0
-    early exit returns an empty f32 array whatever decode_fn returns."""
+    early exit returns an empty f32 array whatever decode_fn returns. The
+    fetch, which waits for the device, is the span ``vocode_read``."""
     n = len(codes)
     if n == 0:
         return np.zeros((0,), np.float32)
     if n <= max_single:
         out = decode_fn(pad_window(codes, voc_bucket(n + 1), device))
-        return out[0, :n * SAMPLES_PER_TOKEN].cpu().numpy()
+        with profiling.span("vocode_read"):
+            return out[0, :n * SAMPLES_PER_TOKEN].cpu().numpy()
     return synthesize_chunked_context(decode_fn, codes, VOC_CHUNK_SIZE,
                                       device=device)
 
@@ -245,7 +248,8 @@ def synthesize_chunked_context(decode_fn, codes: np.ndarray,
     context truncates the sliding-window attention's receptive field (a
     ~1e-5 approximation at the default 25 < window 72). With
     ``context_tokens`` >= the sequence length the output is sample-exact.
-    Every chunk is launched before any is fetched."""
+    Every chunk is launched before any is fetched; the fetches are the
+    span ``vocode_read``."""
     n_tokens = len(codes)
     spt = SAMPLES_PER_TOKEN
     W = voc_bucket(context_tokens + chunk_tokens + 1)
@@ -256,7 +260,8 @@ def synthesize_chunked_context(decode_fn, codes: np.ndarray,
         la_end = min(ce + 1, n_tokens)           # one token of lookahead
         out = decode_fn(pad_window(codes[cs - ctx:la_end], W, device))
         jobs.append(out[0, ctx * spt:(ctx + ce - cs) * spt])
-    parts = [j.cpu().numpy() for j in jobs]
+    with profiling.span("vocode_read"):
+        parts = [j.cpu().numpy() for j in jobs]
     return np.concatenate(parts) if parts else np.zeros(0, np.float32)
 
 

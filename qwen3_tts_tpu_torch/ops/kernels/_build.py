@@ -23,8 +23,9 @@ import shutil
 import struct
 import subprocess
 import threading
-import time
 from pathlib import Path
+
+from qwen3_tts_tpu_torch.utils import profiling
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "qwen3_tts_tpu_torch"
@@ -33,7 +34,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _lib = None
-build_seconds = None   # wall time of the nvcc run this process made, if any
 
 
 def _nvcc() -> str:
@@ -95,17 +95,19 @@ def _compile(path: Path) -> None:
 
 
 def load() -> ctypes.CDLL:
-    """Build (if needed) and load the kernel library; raises on failure."""
-    global _lib, build_seconds
+    """Build (if needed) and load the kernel library; raises on failure.
+    Recorded as the span ``build`` (its ``nvcc`` attribute says whether
+    this process compiled)."""
+    global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        path = library_path()
-        if not path.exists():
-            t0 = time.perf_counter()
-            _compile(path)
-            build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(path))
+        with profiling.span("build") as sp:
+            path = library_path()
+            sp.set(nvcc=not path.exists())
+            if sp.attrs["nvcc"]:
+                _compile(path)
+            lib = ctypes.CDLL(str(path))
         lib.q3_error_string.argtypes = [ctypes.c_int]
         lib.q3_error_string.restype = ctypes.c_char_p
         _lib = lib

@@ -82,8 +82,31 @@ from qwen3_tts_tpu_torch.models import vocoder_stream as vstream
 from qwen3_tts_tpu_torch.models.code_predictor import CodePredictor
 from qwen3_tts_tpu_torch.ops import quant
 from qwen3_tts_tpu_torch.ops import sampling as smp
+from qwen3_tts_tpu_torch.ops.kernels import cp_decode as k_cp
+from qwen3_tts_tpu_torch.ops.kernels import decode_attention as k_attn
+from qwen3_tts_tpu_torch.ops.kernels import paged_attention as k_paged
+from qwen3_tts_tpu_torch.ops.kernels import qmatmul as k_qmm
+from qwen3_tts_tpu_torch.ops.kernels import talker_step as k_step
 from qwen3_tts_tpu_torch.parallel import mesh as pmesh
 from qwen3_tts_tpu_torch.parallel import multihost as mh
+from qwen3_tts_tpu_torch.utils import profiling
+
+# the kernels whose own ``.launches`` counters occupancy() reports
+_KERNELS = {"K1": k_qmm.qmatmul, "K2": k_cp.cp_decode_steps,
+            "K3": k_step.talker_decode_step_fused,
+            "K4": k_paged.paged_decode_attention,
+            "K5": k_attn.decode_attention}
+
+
+def _counters() -> Dict[str, int]:
+    """The process's cumulative counters: the recorder's (those the
+    batchers count), each kernel's launches and the ring's dropped
+    entries."""
+    rec = profiling.snapshot()
+    out = rec["counters"]
+    out.update({f"launches_{k}": fn.launches for k, fn in _KERNELS.items()})
+    out["spans_dropped"] = rec["dropped"]
+    return out
 
 
 class OverloadedError(RuntimeError):
@@ -124,12 +147,27 @@ class _Request:
         # queued, freed at the next chunk boundary once admitted
         self.cancelled = False
         self.future: Future = Future()
-        # latency: queue wait t_admit - t_submit; first token t_first
-        # (observed at chunk granularity); audio t_done
-        self.t_submit = time.perf_counter()
+        # latency (perf_counter s): queue wait t_admit - t_submit; first
+        # token t_first (observed at chunk granularity); first segment
+        # handed to on_chunk t_first_audio; audio t_done
+        self.t_submit_ns = time.perf_counter_ns()
+        self.t_submit = self.t_submit_ns / 1e9
         self.t_admit: Optional[float] = None
         self.t_first: Optional[float] = None
+        self.t_first_audio: Optional[float] = None
         self.t_done: Optional[float] = None
+
+    def finish(self, result=None, exc=None) -> None:
+        """Stamp t_done, record the span ``request`` and resolve the
+        Future."""
+        end = time.perf_counter_ns()
+        self.t_done = end / 1e9
+        if exc is None:
+            self.future.set_result(result)
+        else:
+            self.future.set_exception(exc)
+        profiling.record("request", self.t_submit_ns, end, self.order,
+                         outcome="ok" if exc is None else "error")
 
 
 def _empty_state(cfg: TTSConfig, batch: int, dtype, device,
@@ -236,27 +274,74 @@ class ContinuousBatcher:
         self.dtype = dtype
         self.pipeline_depth = pipeline_depth
 
-        talker = _cast(params["talker"], dtype)
-        if quantize_talker and mesh is None:
-            if "qkv_proj" not in talker["layers"]:
-                talker = quant.quantize_talker(talker)
-        elif any(isinstance(v, quant.QTensor)
-                 for v in talker["layers"].values()):
-            talker = quant.dequantize_talker(talker, dtype)
-        cpp = params["code_predictor"]
-        if quantize_cp and not isinstance(cpp["lm_heads"], quant.QTensor):
-            cpp = quant.quantize_code_predictor(cpp)
-        if mesh is not None:
-            local = pmesh.shard_params(
-                mesh, {"talker": talker, "code_predictor": cpp})
-            talker, cpp = local["talker"], local["code_predictor"]
-        self._tp = tk.Talker(cfg.talker, talker).to(self.device).weights()
-        self._cpp = CodePredictor(cfg.code_predictor,
-                                  cpp).to(self.device).weights()
-        self._vp = voc.Vocoder(cfg.vocoder,
-                               params["vocoder"]).to(self.device).weights()
+        with profiling.span("setup"):
+            self._load_weights(params, quantize_talker, quantize_cp)
+            with profiling.span("kv_init"):
+                self._init_kv(paged, page_size, pool_pages,
+                              max_pages_per_slot)
+        self._slot_req: List[Optional[_Request]] = [None] * batch_size
+        # (done, pos) host mirrors left by the harvest's status read: the
+        # next step's admission uses them instead of a second device read
+        self._status_mirror: Optional[tuple] = None
+        # pipeline_depth=2: (state, status snapshot, chunk id) of the
+        # chunk dispatched last step, harvested one step late
+        self._pending: Optional[tuple] = None
+        self._queue: "queue.Queue[_Request]" = queue.Queue()
+        self._waiting: List[_Request] = []   # scheduler-thread-only
+        self._backlog: List[_Request] = []   # paged: waiting for pages
+        self.max_queue = max_queue
+        self._order = 0
+        self._stop = threading.Event()
+        self._draining = False
+        self._closed = False
+        self._submit_lock = threading.Lock()
+        self._thread: Optional[threading.Thread] = None
+        self.prefix_cache_size = prefix_cache
+        self._prefix_lru: "OrderedDict[tuple, tuple]" = OrderedDict()
+        # each slot's n_codes at the last harvested status (0 from its
+        # admission): a chunk commits the rise over it
+        self._harvested_n = np.zeros((batch_size,), np.int64)
+        self._cid = 0      # chunks dispatched
+        self._counters0 = _counters()   # occupancy() counts from here
+
+    def _load_weights(self, params: Dict, quantize_talker: bool,
+                      quantize_cp: bool) -> None:
+        """The talker in ``dtype`` (int8 or dequantized as asked), the
+        code predictor, the vocoder, sharded on a mesh and on the device;
+        recorded as the spans ``cast``, ``quantize`` and ``to_device``."""
+        cfg, mesh, dtype = self.cfg, self.mesh, self.dtype
+        with profiling.span("cast"):
+            talker = _cast(params["talker"], dtype)
+        with profiling.span("quantize"):
+            if quantize_talker and mesh is None:
+                if "qkv_proj" not in talker["layers"]:
+                    talker = quant.quantize_talker(talker)
+            elif any(isinstance(v, quant.QTensor)
+                     for v in talker["layers"].values()):
+                talker = quant.dequantize_talker(talker, dtype)
+            cpp = params["code_predictor"]
+            if quantize_cp and not isinstance(cpp["lm_heads"],
+                                              quant.QTensor):
+                cpp = quant.quantize_code_predictor(cpp)
+        with profiling.span("to_device"):
+            if mesh is not None:
+                local = pmesh.shard_params(
+                    mesh, {"talker": talker, "code_predictor": cpp})
+                talker, cpp = local["talker"], local["code_predictor"]
+            self._tp = tk.Talker(cfg.talker, talker).to(
+                self.device).weights()
+            self._cpp = CodePredictor(cfg.code_predictor,
+                                      cpp).to(self.device).weights()
+            self._vp = voc.Vocoder(cfg.vocoder, params["vocoder"]).to(
+                self.device).weights()
         self._stepper = vstream.StreamStepper(cfg.vocoder)
 
+    def _init_kv(self, paged: bool, page_size: int,
+                 pool_pages: Optional[int],
+                 max_pages_per_slot: Optional[int]) -> None:
+        """The batch's empty decode state: a dense KV cache, or the paged
+        pool with its page table and free lists."""
+        cfg, mesh, dtype = self.cfg, self.mesh, self.dtype
         self.paged = paged
         paged_kv = None
         local_b = self._hi - self._lo
@@ -280,31 +365,10 @@ class ContinuousBatcher:
             self._free_by_group: List[List[int]] = [
                 list(range(1, per_group)) for _ in range(self._n_groups)]
             self._slot_pages: List[List[int]] = [[] for _ in
-                                                 range(batch_size)]
+                                                 range(self.batch_size)]
         with torch.inference_mode():
             self._state = _empty_state(cfg, local_b, dtype, self.device,
                                        paged_kv, mesh)
-        self._slot_req: List[Optional[_Request]] = [None] * batch_size
-        # (done, pos) host mirrors left by the harvest's status read: the
-        # next step's admission uses them instead of a second device read
-        self._status_mirror: Optional[tuple] = None
-        # pipeline_depth=2: (state, status snapshot) of the chunk
-        # dispatched last step, harvested one step late
-        self._pending: Optional[tuple] = None
-        self._queue: "queue.Queue[_Request]" = queue.Queue()
-        self._waiting: List[_Request] = []   # scheduler-thread-only
-        self._backlog: List[_Request] = []   # paged: waiting for pages
-        self.max_queue = max_queue
-        self._order = 0
-        self._stop = threading.Event()
-        self._draining = False
-        self._closed = False
-        self._submit_lock = threading.Lock()
-        self._thread: Optional[threading.Thread] = None
-        self.prefix_cache_size = prefix_cache
-        self._prefix_lru: "OrderedDict[tuple, tuple]" = OrderedDict()
-        self.prefix_hits = 0
-        self.prefix_misses = 0
 
     # -- public API ---------------------------------------------------------
 
@@ -357,7 +421,15 @@ class ContinuousBatcher:
         return req.future
 
     def occupancy(self) -> dict:
-        """Scheduler snapshot (read without pausing the scheduler)."""
+        """Scheduler snapshot (read without pausing the scheduler), with
+        the counters of utils/profiling under ``counters``, counted since
+        this batcher was built (by every batcher of the process, and
+        every kernel launch, engine calls included): the batchers' own,
+        each kernel's launches (``launches_K1``..``K5``) and the
+        recorder's dropped entries (``spans_dropped``). A counter appears
+        once it has counted."""
+        now = _counters()
+        counters = {k: v - self._counters0.get(k, 0) for k, v in now.items()}
         snap = {
             "batch_size": self.batch_size,
             "active_slots": sum(r is not None for r in self._slot_req),
@@ -366,8 +438,9 @@ class ContinuousBatcher:
             "paged": self.paged,
             "prefix_cache": {"entries": len(self._prefix_lru),
                              "capacity": self.prefix_cache_size,
-                             "hits": self.prefix_hits,
-                             "misses": self.prefix_misses},
+                             "hits": counters.get("prefix_hits", 0),
+                             "misses": counters.get("prefix_misses", 0)},
+            "counters": counters,
         }
         if self.paged:
             snap["free_pages"] = len(self._free_pages)
@@ -479,9 +552,11 @@ class ContinuousBatcher:
         the whole batch: on a mesh of dp groups the one collective of the
         scheduler, an all-gather over dp of the groups' host status."""
         host, ready = snap
-        if ready is not None:
-            ready.synchronize()
-        st = pmesh.dp_all_gather(host, self.mesh).numpy()
+        profiling.count("status_reads")
+        with profiling.span("status_read"):
+            if ready is not None:
+                ready.synchronize()
+            st = pmesh.dp_all_gather(host, self.mesh).numpy()
         return st[0].astype(bool), st[1].copy(), st[2].copy()
 
     def _fetch_status(self, state: gen.GenState) -> tuple:
@@ -515,7 +590,7 @@ class ContinuousBatcher:
             hit = self._prefix_lru.get(key)
             if hit is not None:
                 self._prefix_lru.move_to_end(key)
-                self.prefix_hits += 1
+                profiling.count("prefix_hits")
                 return hit
         prefix, plen = tk.request_prefix(self._tp, self._cpp["codec_embs"],
                                          req.text_ids, req.n_text,
@@ -525,7 +600,7 @@ class ContinuousBatcher:
         hidden, kv = gen.prefill_state(self._tp, prefix[None], plen[None],
                                        pcfg, mesh=self.mesh)
         out = (hidden, kv, plen[None])
-        self.prefix_misses += 1
+        profiling.count("prefix_misses")
         if self.prefix_cache_size > 0:
             self._prefix_lru[key] = out
             while len(self._prefix_lru) > self.prefix_cache_size:
@@ -590,7 +665,7 @@ class ContinuousBatcher:
                    if self._slot_req[s] is not None
                    and self._slot_req[s].cancelled and not done[s]]
         _fail([self._slot_req[s] for s in victims],
-              RuntimeError("request cancelled"))
+              RuntimeError("request cancelled"), "cancelled")
         self._free_slots_on_device(victims)
         done[victims] = True
         return frozenset(victims)
@@ -598,7 +673,11 @@ class ContinuousBatcher:
     def _admit(self, done: np.ndarray, pos: np.ndarray) -> List[int]:
         """Admit queued requests into free slots; updates the host
         mirrors ``done``/``pos`` in place (both are known on the host), so
-        the page top-up needs no device read. Returns the slots."""
+        the page top-up needs no device read. Returns the slots. Each
+        admission is the span ``admit`` (its end is ``t_admit``), the wait
+        before it the span ``queue``; an attempt that returns a paged
+        request to the backlog is an ``admit`` span with outcome
+        ``backlog``, inside the queue wait."""
         admitted: List[int] = []
         free = [s for s in range(self.batch_size)
                 if done[s] and self._slot_req[s] is None]
@@ -609,52 +688,63 @@ class ContinuousBatcher:
                 if req is None:
                     break
                 if req.cancelled:
-                    _fail([req], RuntimeError("request cancelled"))
+                    _fail([req], RuntimeError("request cancelled"),
+                          "cancelled")
                     continue
                 # a malformed request fails its own Future, on every rank
                 # alike (the checks read only the host request); the slot
                 # moves on to the next request
-                try:
-                    vocab = self.cfg.talker.text_vocab_size
-                    if ((req.text_ids < 0) | (req.text_ids >= vocab)).any():
-                        raise ValueError(f"text ids out of the vocabulary "
-                                         f"[0, {vocab})")
-                    if self.paged:
-                        if not self._admit_paged(slot, req):
-                            self._backlog.append(req)   # pool pressure
-                            req = None
-                            break
-                    else:
-                        S = self.cfg.talker.max_seq_len
-                        p_pad = len(req.text_ids) + tk.PREFIX_EXTRA
-                        if req.ref_codes is not None:
-                            # after bucketing: even a reference cut to
-                            # nothing pads to one row
-                            p_pad += len(self._cloned_inputs(req, S)[0])
-                        if p_pad > S:
-                            raise ValueError(
-                                f"request prefix ({p_pad} rows incl. "
-                                f"{tk.PREFIX_EXTRA} special) exceeds the "
-                                f"dense KV allocation (max_seq_len={S}); "
-                                f"shorten the text or use the paged "
-                                f"batcher")
-                        if self._holds(slot):
-                            _insert_slot(self._state, slot - self._lo,
-                                         self._sub_state(req, S))
-                except Exception as e:
-                    _fail([req], e)
-                    continue
+                with profiling.span("admit", req.order) as sp:
+                    try:
+                        placed = self._admit_one(slot, req)
+                    except Exception as e:
+                        sp.set(outcome="error")
+                        _fail([req], e)
+                        continue
+                    sp.set(outcome="ok" if placed else "backlog")
+                if not placed:
+                    self._backlog.append(req)   # pool pressure
+                    profiling.count("backlog_retries")
+                    req = None
                 break
             if req is None:
                 break
             self._slot_req[slot] = req
-            req.t_admit = time.perf_counter()
+            req.t_admit = sp.end / 1e9
+            profiling.record("queue", req.t_submit_ns, sp.start, req.order)
+            profiling.count("admissions")
+            self._harvested_n[slot] = 0
             done[slot] = False
             # the prefill's prefix_len, reference frames included
             n_ref = req.cloned_prep[1] if req.cloned_prep else 0
             pos[slot] = req.n_text + tk.PREFIX_EXTRA + n_ref
             admitted.append(slot)
         return admitted
+
+    def _admit_one(self, slot: int, req: _Request) -> bool:
+        """Check ``req`` and place it in ``slot``: its prefill spliced in
+        (on the rank that holds the slot). False when the paged pool
+        cannot cover its prefix yet; raises for a malformed request."""
+        vocab = self.cfg.talker.text_vocab_size
+        if ((req.text_ids < 0) | (req.text_ids >= vocab)).any():
+            raise ValueError(f"text ids out of the vocabulary [0, {vocab})")
+        if self.paged:
+            return self._admit_paged(slot, req)
+        S = self.cfg.talker.max_seq_len
+        p_pad = len(req.text_ids) + tk.PREFIX_EXTRA
+        if req.ref_codes is not None:
+            # after bucketing: even a reference cut to nothing pads to one
+            # row
+            p_pad += len(self._cloned_inputs(req, S)[0])
+        if p_pad > S:
+            raise ValueError(
+                f"request prefix ({p_pad} rows incl. {tk.PREFIX_EXTRA} "
+                f"special) exceeds the dense KV allocation (max_seq_len="
+                f"{S}); shorten the text or use the paged batcher")
+        if self._holds(slot):
+            _insert_slot(self._state, slot - self._lo,
+                         self._sub_state(req, S))
+        return True
 
     def _admit_paged(self, slot: int, req: _Request) -> bool:
         """Allocate pages for the prefix plus one chunk of headroom,
@@ -773,7 +863,7 @@ class ContinuousBatcher:
             jobs += [(req, seg, n) for seg in segs]
         return jobs
 
-    def _harvest(self, state: gen.GenState, status: tuple,
+    def _harvest(self, state: gen.GenState, status: tuple, cid: int = 0,
                  skip=frozenset(), local_status=None) -> int:
         """Read a chunk's status snapshot (kept as the next step's
         mirrors), emit the streaming segments and resolve the finished
@@ -789,77 +879,97 @@ class ContinuousBatcher:
         dispatched (their done/pos/n_codes were written in place into
         ``state``, and its status describes the slot's previous
         occupant); they keep their mirrors from ``local_status``, the
-        admission's (done, pos)."""
-        done, n_codes, pos = self._read_status(status)
-        m_done, m_pos = done.copy(), pos.copy()
-        for s in skip:
-            m_done[s], m_pos[s] = local_status[0][s], local_status[1][s]
-        self._status_mirror = (m_done, m_pos)
-        now = time.perf_counter()
-        streaming = False
-        for s, r in enumerate(self._slot_req):
-            if r is None or s in skip:
-                continue
-            if r.t_first is None and n_codes[s] > 0:
-                r.t_first = now
-            if r.on_chunk is not None and n_codes[s] > 0:
-                streaming = True
-        finished = [s for s in range(self.batch_size)
-                    if self._slot_req[s] is not None and done[s]
-                    and s not in skip]
-        if not finished and not streaming:
-            return 0
-        jobs = self._dispatch_stream_windows(state, done, n_codes, skip)
-        # a copy: on the CPU .numpy() would share the buffer that the
-        # slot's next request overwrites
-        codes_all = (state.codes.cpu().numpy().copy()
-                     if any(self._serves_slot(s) for s in finished)
-                     else None)
-        for req, seg, n in jobs:
-            if req.stream_error is not None:
-                continue
-            try:
-                part = seg.take(n)
-                if len(part):
-                    req.audio_parts.append(part)
-                    req.on_chunk(part)
-            except Exception as e:
-                req.stream_error = e
-        for slot in finished:
-            req = self._slot_req[slot]
-            try:
-                if not self._serves_slot(slot):
-                    # the owning group's tp rank 0 serves it: here the
-                    # request resolves to the remote marker
-                    result = (None, None)
-                else:
-                    codes = codes_all[slot - self._lo, :int(n_codes[slot])]
-                    if req.on_chunk is None:
-                        audio = vocode(self._vp, codes, self.cfg.vocoder,
-                                       self.device)
-                    elif req.stream_error is not None:
-                        raise req.stream_error
+        admission's (done, pos).
+
+        Recorded as the span ``harvest`` of chunk ``cid``, with the codes
+        the chunk committed (each held slot's rise in n_codes since the
+        last harvest), and its children ``status_read``, ``stream``,
+        ``codes_read``, ``segment_read`` and ``vocode``; a request's first
+        segment is the mark ``first_audio`` (``t_first_audio``)."""
+        with profiling.span("harvest", cid=cid) as hv:
+            done, n_codes, pos = self._read_status(status)
+            m_done, m_pos = done.copy(), pos.copy()
+            for s in skip:
+                m_done[s], m_pos[s] = local_status[0][s], local_status[1][s]
+            self._status_mirror = (m_done, m_pos)
+            now = time.perf_counter()
+            streaming = False
+            committed = 0
+            for s, r in enumerate(self._slot_req):
+                if r is None or s in skip:
+                    continue
+                committed += int(n_codes[s]) - int(self._harvested_n[s])
+                self._harvested_n[s] = n_codes[s]
+                if r.t_first is None and n_codes[s] > 0:
+                    r.t_first = now
+                if r.on_chunk is not None and n_codes[s] > 0:
+                    streaming = True
+            hv.set(codes=committed)
+            profiling.count("codes_committed", committed)
+            finished = [s for s in range(self.batch_size)
+                        if self._slot_req[s] is not None and done[s]
+                        and s not in skip]
+            if not finished and not streaming:
+                return 0
+            with profiling.span("stream"):
+                jobs = self._dispatch_stream_windows(state, done, n_codes,
+                                                     skip)
+            # a copy: on the CPU .numpy() would share the buffer that the
+            # slot's next request overwrites
+            codes_all = None
+            if any(self._serves_slot(s) for s in finished):
+                with profiling.span("codes_read"):
+                    codes_all = state.codes.cpu().numpy().copy()
+            for req, seg, n in jobs:
+                if req.stream_error is not None:
+                    continue
+                try:
+                    with profiling.span("segment_read", req.order):
+                        part = seg.take(n)
+                    if len(part):
+                        req.audio_parts.append(part)
+                        profiling.count("segments")
+                        if req.t_first_audio is None:
+                            req.t_first_audio = profiling.mark(
+                                "first_audio", req.order, cid=cid) / 1e9
+                        req.on_chunk(part)
+                except Exception as e:
+                    req.stream_error = e
+            for slot in finished:
+                req = self._slot_req[slot]
+                try:
+                    if not self._serves_slot(slot):
+                        # the owning group's tp rank 0 serves it: here the
+                        # request resolves to the remote marker
+                        result = (None, None)
                     else:
-                        audio = (np.concatenate(req.audio_parts)
-                                 if req.audio_parts
-                                 else np.zeros((0,), np.int16))
-                    result = (codes, audio)
-                req.t_done = time.perf_counter()
-                req.future.set_result(result)
-            except Exception as e:
-                req.t_done = time.perf_counter()
-                req.future.set_exception(e)
-            self._slot_req[slot] = None
-            if self.paged:
-                # at depth 2 the chunk queued after this one still writes
-                # this frozen slot's K/V at its last position through the
-                # old table row. The zeroing below is queued after that
-                # chunk, and the pages go to another slot only at a later
-                # admission, whose writes are queued later still: stream
-                # order keeps the stale write out of the pages' next
-                # owner.
-                self._release(slot)
-        return len(finished)
+                        codes = codes_all[slot - self._lo,
+                                          :int(n_codes[slot])]
+                        if req.on_chunk is None:
+                            with profiling.span("vocode", req.order):
+                                audio = vocode(self._vp, codes,
+                                               self.cfg.vocoder, self.device)
+                        elif req.stream_error is not None:
+                            raise req.stream_error
+                        else:
+                            audio = (np.concatenate(req.audio_parts)
+                                     if req.audio_parts
+                                     else np.zeros((0,), np.int16))
+                        result = (codes, audio)
+                    req.finish(result)
+                except Exception as e:
+                    req.finish(exc=e)
+                self._slot_req[slot] = None
+                if self.paged:
+                    # at depth 2 the chunk queued after this one still
+                    # writes this frozen slot's K/V at its last position
+                    # through the old table row. The zeroing below is
+                    # queued after that chunk, and the pages go to another
+                    # slot only at a later admission, whose writes are
+                    # queued later still: stream order keeps the stale
+                    # write out of the pages' next owner.
+                    self._release(slot)
+            return len(finished)
 
     @torch.inference_mode()
     def step(self) -> bool:
@@ -869,33 +979,58 @@ class ContinuousBatcher:
         reuses). At pipeline_depth=2 the harvest is of the chunk before
         this one, which runs after this chunk is dispatched; it skips
         this step's admissions and evictions. Returns True if a chunk
-        ran."""
-        if self._status_mirror is not None:
-            done, pos = self._status_mirror
-            self._status_mirror = None
-        else:
-            done, _, pos = self._fetch_status(self._state)
-        cancelled = self._evict_cancelled(done)
-        admitted = self._admit(done, pos)
-        if not any(r is not None for r in self._slot_req):
-            # idle: nothing ran, so the mirrors still hold; a pending
-            # chunk only advanced frozen rows
-            self._pending = None
-            self._status_mirror = (done, pos)
+        ran.
+
+        Recorded as the span ``step`` with the children ``evict``,
+        ``admissions``, ``top_up``, ``dispatch`` (the host enqueue of
+        chunk ``cid``: its loop steps, rows and ``done`` reads) and
+        ``harvest``; an idle step (nothing held, queued or pending)
+        returns at once and records nothing."""
+        if (self._status_mirror is not None and self._pending is None
+                and not self.busy()):
             return False
-        if self.paged:
-            self._top_up_pages(pos, done)
-        self._state = gen.run_steps(self._tp, self._cpp, self._state,
-                                    self.cfg, self.decode_chunk, self.mesh)
-        chunk = (self._state, self._snapshot_status(self._state))
-        if self.pipeline_depth == 1:
-            self._harvest(*chunk)
-        else:
-            prev, self._pending = self._pending, chunk
-            if prev is not None:
-                self._harvest(*prev, skip=frozenset(admitted) | cancelled,
-                              local_status=(done, pos))
-        return True
+        with profiling.span("step"):
+            if self._status_mirror is not None:
+                done, pos = self._status_mirror
+                self._status_mirror = None
+            else:
+                done, _, pos = self._fetch_status(self._state)
+            with profiling.span("evict"):
+                cancelled = self._evict_cancelled(done)
+            with profiling.span("admissions"):
+                admitted = self._admit(done, pos)
+            if not any(r is not None for r in self._slot_req):
+                # idle: nothing ran, so the mirrors still hold; a pending
+                # chunk only advanced frozen rows
+                self._pending = None
+                self._status_mirror = (done, pos)
+                return False
+            if self.paged:
+                with profiling.span("top_up"):
+                    self._top_up_pages(pos, done)
+            self._cid += 1
+            cid = self._cid
+            with profiling.span("dispatch", cid=cid) as sp:
+                run = {}
+                self._state = gen.run_steps(self._tp, self._cpp, self._state,
+                                            self.cfg, self.decode_chunk,
+                                            self.mesh, stats=run)
+                chunk = (self._state, self._snapshot_status(self._state), cid)
+                sp.set(steps=run["steps"], rows=self.batch_size,
+                       done_reads=run["done_reads"])
+            profiling.count("chunks")
+            profiling.count("loop_steps", run["steps"])
+            profiling.count("row_steps", run["steps"] * self.batch_size)
+            profiling.count("done_reads", run["done_reads"])
+            if self.pipeline_depth == 1:
+                self._harvest(*chunk)
+            else:
+                prev, self._pending = self._pending, chunk
+                if prev is not None:
+                    self._harvest(*prev,
+                                  skip=frozenset(admitted) | cancelled,
+                                  local_status=(done, pos))
+            return True
 
     def _loop(self) -> None:
         # inference_mode is thread-local: the scheduler thread enters it.
@@ -949,10 +1084,15 @@ class ContinuousBatcher:
             _fail(leftovers, exc)
 
 
-def _fail(reqs, exc: BaseException) -> None:
+def _fail(reqs, exc: BaseException, outcome: str = "error") -> None:
+    """Fail the requests not yet resolved, each recorded as the span
+    ``request`` with ``outcome`` (t_done stays None: no audio came)."""
     for r in reqs:
         if not r.future.done():
             r.future.set_exception(exc)
+            profiling.record("request", r.t_submit_ns,
+                             time.perf_counter_ns(), r.order,
+                             outcome=outcome)
 
 
 def _cast(tree: dict, dtype) -> dict:

@@ -2,7 +2,7 @@
 qwen3_tts_tpu/serve/daemon.py over the port's engine and batcher.
 
     python -m qwen3_tts_tpu_torch.serve.daemon [--batch 4 --paged]
-        [--http 8080] [--voices DIR] [--device cuda|cpu]
+        [--http 8080] [--voices DIR] [--device cuda|cpu] [--profile DIR]
 
 Two tiers: engine mode (default) serves one request at a time on
 ``TTSEngine`` through the native accept loop (runtime/native.py, libttsrt)
@@ -12,7 +12,11 @@ of concurrent connections, one thread each, into the continuous batcher
 ``--tp``/``--dp`` serve the batched tier over a dp x tp mesh: one rank
 in this process, or, for more, ranks that this command starts, one a
 device, whose rank 0 serves the socket and broadcasts every step's
-admissions to the others (serve/lockstep.py).
+admissions to the others (serve/lockstep.py). ``--profile DIR`` writes
+one torch.profiler trace of the whole session (set-up, warm-up and
+serving) into DIR at shutdown, with the program's spans as ranges
+(utils/profiling.device_trace): the batcher's set-up and, per step,
+its eviction, admissions, page top-up, dispatch and harvest.
 
 Protocol (little-endian), the JAX daemon's:
   request:  [u32 len][JSON {"text", "language", "streaming", "seed",
@@ -738,6 +742,12 @@ def parser():
     p.add_argument("--http", type=int, default=0, metavar="PORT",
                    help="also serve HTTP on 127.0.0.1:PORT "
                         "(serve/http.py)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="write a torch.profiler trace of the session, the "
+                        "program's spans as ranges, to DIR at shutdown "
+                        "(one process: not with several --tp/--dp ranks; "
+                        "the profiler holds every event in memory, so for "
+                        "short sessions)")
     return p
 
 
@@ -774,6 +784,9 @@ def main(argv=None) -> int:
                     "(slots shard over dp)")
         from qwen3_tts_tpu_torch.parallel import multihost as mh
         if dp * tp > 1:
+            if args.profile:
+                p.error("--profile traces one process, not the ranks of "
+                        f"a dp{dp}xtp{tp} mesh")
             if args.device != "cpu":
                 import torch
                 # every rank needs a card of its own (the first N of this
@@ -788,8 +801,11 @@ def main(argv=None) -> int:
         mesh = mh.make_serving_mesh(tp=1, dp=1, devices=[args.device])
         print(f"mesh dp{mesh.shape['dp']}xtp{mesh.shape['tp']} over "
               f"{mesh.devices.size} device(s)", flush=True)
-    engine, batcher = build(args, mesh)
-    return serve_main(args, engine, batcher)
+    from qwen3_tts_tpu_torch.utils.profiling import device_trace
+    with device_trace(args.profile,
+                      mesh.device if mesh is not None else args.device):
+        engine, batcher = build(args, mesh)
+        return serve_main(args, engine, batcher)
 
 
 def _launch_ranks(n: int, argv) -> int:

@@ -395,7 +395,9 @@ def prometheus_text(snap: dict, prefix: str = "qwen3_tts") -> str:
     format: scalars become gauges (counters get the *_total suffix),
     ``{"p50","p95","n"}`` percentile dicts become summary quantiles +
     _count, nested dicts (batcher occupancy) flatten with underscores,
-    and the ``mode`` string rides as a label on an info gauge."""
+    a nested ``counters`` dict (the batcher's cumulative counters) gives
+    ``<path>_<name>_total``, and the ``mode`` string rides as a label on
+    an info gauge."""
     lines = []
 
     def emit(name: str, value, labels: str = "") -> None:
@@ -408,7 +410,10 @@ def prometheus_text(snap: dict, prefix: str = "qwen3_tts") -> str:
     def walk(d: dict, path: str) -> None:
         for k, v in d.items():
             name = f"{path}_{k}"
-            if isinstance(v, dict):
+            if isinstance(v, dict) and k == "counters":
+                for ck, cv in v.items():
+                    emit(f"{path}_{ck}_total", cv)
+            elif isinstance(v, dict):
                 if {"p50", "p95"} <= set(v):
                     emit(name, v["p50"], '{quantile="0.5"}')
                     emit(name, v["p95"], '{quantile="0.95"}')

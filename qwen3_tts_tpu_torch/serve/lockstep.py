@@ -240,6 +240,7 @@ class _FrontRequest:
         self.t_submit = time.perf_counter()
         self.t_admit: Optional[float] = None
         self.t_first: Optional[float] = None
+        self.t_first_audio: Optional[float] = None
         self.t_done: Optional[float] = None
 
 
@@ -410,7 +411,7 @@ class LockstepFront:
         local = self._rank.finished.get(req.id)
         if local is not None:
             req.t_admit, req.t_first = local.t_admit, local.t_first
-            req.t_done = local.t_done
+            req.t_first_audio, req.t_done = local.t_first_audio, local.t_done
         self._live.pop(req.id, None)
         _resolve(req, result, exc)
 

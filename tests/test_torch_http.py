@@ -210,3 +210,41 @@ def test_metrics_and_prometheus_text_match_jax(gateway):
                         "prefix_cache": {"entries": 1, "capacity": 8,
                                          "hits": 3, "misses": 1}}}
     assert thttp.prometheus_text(snap) == jhttp.prometheus_text(snap)
+
+
+def test_metrics_export_the_batchers_counters(gateway):
+    """A batched daemon's /metrics carries every cumulative counter of
+    the batcher (its own, the kernels' launches, the recorder's dropped
+    entries) as qwen3_tts_batcher_<name>_total, and its prefix cache hits
+    and misses as gauges, as {"cmd": "stats"} reports them."""
+    engine, _, _ = gateway
+    b = ContinuousBatcher(engine.cfg, engine.params, batch_size=2,
+                          dtype=torch.float32, device="cpu")
+    ids, n_text = engine._encode_text("counted")
+    b.start()
+    try:
+        n_codes = len(b.submit(np.asarray(ids), int(n_text), seed=4,
+                               max_tokens=4).result(timeout=120)[0])
+    finally:
+        b.stop()
+    daemon = TTSDaemon(engine, "unused", batcher=b)
+    srv = thttp.serve_http(daemon, host="127.0.0.1", port=0)
+    try:
+        status, _, body = _req(srv.server_address, "GET", "/metrics")
+        _, _, stats = _req(srv.server_address, "GET", "/v1/stats")
+    finally:
+        srv.shutdown()
+    assert status == 200
+    metrics = dict(line.rsplit(" ", 1)
+                   for line in body.decode().strip().split("\n"))
+    counters = json.loads(stats)["batcher"]["counters"]
+    assert {"chunks", "loop_steps", "row_steps", "codes_committed",
+            "done_reads", "status_reads", "admissions", "prefix_misses",
+            "spans_dropped"} | {f"launches_K{i}" for i in range(1, 6)} <= set(
+        counters)
+    assert counters["admissions"] == 1
+    assert counters["codes_committed"] == n_codes
+    for name, value in counters.items():
+        assert float(metrics[f"qwen3_tts_batcher_{name}_total"]) == value
+    assert "qwen3_tts_batcher_prefix_cache_hits" in metrics
+    assert not any(k.startswith("qwen3_tts_batcher_counters") for k in metrics)
