@@ -1169,8 +1169,9 @@ def phase_kernel_profiles(eng, card: str, k3: dict, k2: dict) -> None:
 # K1 launches a decode step of the slice (a token; the loop runs in
 # chunks of 8 steps, so a request's steps round its tokens up to 8):
 # codec_head, lm_heads[0] and the code predictor's 2-token prefill (5
-# layers x q|k|v, o, gate|up, down), all on qsplit: 22; the talker
-# prefill adds 4 a layer a request (the tile)
+# layers x q|k|v, o, gate|up, down), all on qsplit: 22 (a replay of the
+# prelude's CUDA graph counts the 21 it launches); the talker prefill
+# adds 4 a layer a request (the tile)
 K1_PER_STEP = 23
 
 

@@ -181,8 +181,10 @@ def run_steps(talker_params: dict, cp_params: dict, state: GenState,
     end may run: they change nothing, because every row is frozen.
     ``mesh``: the tp mesh of sharded weights and state; every rank of a
     tp group stops at the same step, as its ``done`` is the same.
-    ``stats``, if given, receives the steps run (``steps``) and the
-    ``done`` reads (``done_reads``)."""
+    ``stats``, if given, receives the steps run (``steps``), the
+    ``done`` reads (``done_reads``) and the steps whose code predictor
+    prelude replayed a CUDA graph (``graph_steps``: every step on a card
+    off a tp mesh, none elsewhere)."""
     dev = state.hidden.device
     tts_pad_embed = tk.embed_text(
         talker_params, torch.tensor([TTS_PAD_TOKEN_ID], device=dev),
@@ -204,7 +206,8 @@ def run_steps(talker_params: dict, cp_params: dict, state: GenState,
                            cfg, rope_table, mesh)
         steps += 1
     if stats is not None:
-        stats.update(steps=steps, done_reads=reads)
+        stats.update(steps=steps, done_reads=reads,
+                     graph_steps=steps if cp._graphed(dev, mesh) else 0)
     return state
 
 

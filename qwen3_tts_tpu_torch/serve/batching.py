@@ -983,8 +983,9 @@ class ContinuousBatcher:
 
         Recorded as the span ``step`` with the children ``evict``,
         ``admissions``, ``top_up``, ``dispatch`` (the host enqueue of
-        chunk ``cid``: its loop steps, rows and ``done`` reads) and
-        ``harvest``; an idle step (nothing held, queued or pending)
+        chunk ``cid``: its loop steps, rows, ``done`` reads and the steps
+        whose code predictor prelude replayed a CUDA graph, ``cp_graph``)
+        and ``harvest``; an idle step (nothing held, queued or pending)
         returns at once and records nothing."""
         if (self._status_mirror is not None and self._pending is None
                 and not self.busy()):
@@ -1017,9 +1018,11 @@ class ContinuousBatcher:
                                             self.mesh, stats=run)
                 chunk = (self._state, self._snapshot_status(self._state), cid)
                 sp.set(steps=run["steps"], rows=self.batch_size,
-                       done_reads=run["done_reads"])
+                       done_reads=run["done_reads"],
+                       cp_graph=run["graph_steps"])
             profiling.count("chunks")
             profiling.count("loop_steps", run["steps"])
+            profiling.count("cp_graph_steps", run["graph_steps"])
             profiling.count("row_steps", run["steps"] * self.batch_size)
             profiling.count("done_reads", run["done_reads"])
             if self.pipeline_depth == 1:

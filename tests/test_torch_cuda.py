@@ -348,6 +348,147 @@ def test_cp_decode_full_geometry_matches_plain(cuda, B):
         torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
+def _cp_graph_counts():
+    """The recorder's (captures, replays, eager calls) of the prelude."""
+    from qwen3_tts_tpu_torch.utils import profiling
+    c = profiling.snapshot()["counters"]
+    return tuple(c.get(k, 0) for k in ("cp_graph_captures",
+                                       "cp_graph_replays", "cp_eager_calls"))
+
+
+def _prelude_inputs(cfg, B, g):
+    """A talker hidden, a code-0 embedding and the CP seeds (B, 2): the
+    token_seeds columns the loop passes, a strided int64 view."""
+    from qwen3_tts_tpu_torch.ops import sampling as smp
+    H = cfg.hidden_size
+    hidden = torch.randn((B, H), generator=g, device="cuda").bfloat16()
+    c0 = (torch.randn((B, H), generator=g, device="cuda") * 0.02).bfloat16()
+    keys = torch.randint(0, 2 ** 62, (B,), generator=g, device="cuda")
+    n = torch.randint(0, 200, (B,), generator=g, device="cuda")
+    return hidden, c0, smp.token_seeds(keys, n)[:, 1:]
+
+
+@pytest.mark.parametrize("greedy", [True, False], ids=["greedy", "sampled"])
+@pytest.mark.parametrize("B", [1, 8])
+def test_cp_prelude_graph_equals_the_eager_prelude(cuda, B, greedy):
+    """At the 0.6B code predictor's geometry (random int8 weights): the
+    prelude replayed as a CUDA graph gives the eager prelude's tok0, KV
+    cache, K2 seeds and rope tables, and predict_codes the eager path's
+    groups, bit for bit, over replays with fresh inputs; an eager call
+    at another B between replays changes nothing. One capture, one
+    replay a call, and a replay counts the K1 launches of an eager
+    prelude."""
+    from qwen3_tts_tpu_torch.config import SamplingConfig
+    from qwen3_tts_tpu_torch.models import code_predictor as cpm
+    from qwen3_tts_tpu_torch.tools import bench_cp_decode as bench
+    cfg, params = bench.cp_params()
+    scfg = SamplingConfig(cp_temperature=0.0 if greedy else 0.9)
+    g = torch.Generator(device="cuda").manual_seed(B)
+    fused = cpm._fused_kernel_ok(params, B)
+    assert fused
+    c0 = _cp_graph_counts()
+    for i in range(5):
+        if i == 3:
+            other = _prelude_inputs(cfg, B + 3 if B < 8 else 3, g)
+            cpm._decode(params, *cpm._prelude(params, *other, cfg, scfg,
+                                              rope=True), cfg, scfg)
+        ins = _prelude_inputs(cfg, B, g)
+        k1 = tqm.qmatmul.launches
+        want = cpm._prelude(params, *ins, cfg, scfg, rope=True)
+        eager_k1 = tqm.qmatmul.launches - k1
+        assert eager_k1 > 0
+        k1 = tqm.qmatmul.launches
+        graph = cpm._prelude_graph(params, *ins, cfg, scfg, True)
+        # the capture's warm-up launches; the capture itself launches none
+        assert tqm.qmatmul.launches - k1 == (eager_k1 if i == 0 else 0)
+        k1 = tqm.qmatmul.launches
+        with graph.lock:
+            got = graph.replay(*ins)
+            assert tqm.qmatmul.launches - k1 == eager_k1
+            for a, b in zip(got[:3] + got[3], want[:3] + want[3]):
+                assert a.dtype == b.dtype and torch.equal(a, b)
+        want_codes = cpm._decode(params, *want, cfg, scfg)
+        codes = cpm.predict_codes(params, *ins, cfg, scfg)
+        assert torch.equal(codes, want_codes)
+        assert torch.equal(codes[:, 0], want[0])
+    assert tuple(n - n0 for n, n0 in zip(_cp_graph_counts(), c0)) == (
+        1, 10, 0)
+
+
+def test_cp_prelude_graphs_are_bounded_and_recaptured(cuda):
+    """Past MAX_GRAPHS keys the least recently used graph goes; its key's
+    next call captures again and gives the eager path's groups; a call
+    past K2's 8 rows (the per-step path after the prelude) replays too."""
+    from qwen3_tts_tpu_torch.config import SamplingConfig
+    from qwen3_tts_tpu_torch.models import code_predictor as cpm
+    from qwen3_tts_tpu_torch.tools import bench_cp_decode as bench
+    cfg, params = bench.cp_params()
+    scfg = SamplingConfig(cp_temperature=0.0)
+    g = torch.Generator(device="cuda").manual_seed(11)
+    sizes = list(range(1, cpm.MAX_GRAPHS + 2)) + [1]
+    caps = _cp_graph_counts()[0]
+    for B in sizes:
+        ins = _prelude_inputs(cfg, B, g)
+        want = cpm._decode(params, *cpm._prelude(params, *ins, cfg, scfg,
+                                                 rope=True), cfg, scfg)
+        assert torch.equal(cpm.predict_codes(params, *ins, cfg, scfg), want)
+        assert len(cpm._GRAPHS) <= cpm.MAX_GRAPHS
+    assert _cp_graph_counts()[0] - caps == len(sizes)
+    ins = _prelude_inputs(cfg, 9, g)
+    assert not cpm._fused_kernel_ok(params, 9)
+    want = cpm._decode(params, *cpm._prelude(params, *ins, cfg, scfg), cfg,
+                       scfg)
+    replays = _cp_graph_counts()[1]
+    assert torch.equal(cpm.predict_codes(params, *ins, cfg, scfg), want)
+    assert _cp_graph_counts()[1] == replays + 1
+
+
+def test_cp_prelude_graph_shared_by_threads(cuda):
+    """Threads that call predict_codes with the same weights and B on the
+    same stream share one graph; its lock keeps each call's outputs
+    until its reads are enqueued, so every call gets its own inputs'
+    groups (more threads than the host's cores, a short switch
+    interval)."""
+    import os
+    import sys
+    import threading
+    from qwen3_tts_tpu_torch.config import SamplingConfig
+    from qwen3_tts_tpu_torch.models import code_predictor as cpm
+    from qwen3_tts_tpu_torch.tools import bench_cp_decode as bench
+    cfg, params = bench.cp_params()
+    scfg = SamplingConfig(cp_temperature=0.9)
+    g = torch.Generator(device="cuda").manual_seed(5)
+    n_threads, calls = 2 * (os.cpu_count() or 4), 6
+    jobs = [[_prelude_inputs(cfg, 4, g) for _ in range(calls)]
+            for _ in range(n_threads)]
+    want = [[cpm._decode(params, *cpm._prelude(params, *ins, cfg, scfg,
+                                                rope=True), cfg, scfg)
+             for ins in job] for job in jobs]
+    got = [[None] * calls for _ in range(n_threads)]
+    caps = _cp_graph_counts()[0]
+
+    def work(t):
+        for i, ins in enumerate(jobs[t]):
+            got[t][i] = cpm.predict_codes(params, *ins, cfg, scfg)
+
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-5)
+    try:
+        threads = [threading.Thread(target=work, args=(t,))
+                   for t in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        sys.setswitchinterval(old)
+    assert not any(t.is_alive() for t in threads)
+    assert _cp_graph_counts()[0] - caps == 1
+    for t in range(n_threads):
+        for i in range(calls):
+            assert torch.equal(got[t][i], want[t][i]), (t, i)
+
+
 # (K, N) of every product of a K2 step at the 0.6B geometry, each alone
 # and in the clusters it gets in a step: mtp, k and v, o, down (clusters
 # of 8); q and the head, gate and up (4); q|k|v and gate|up at their
@@ -761,8 +902,10 @@ def test_vocoder_windows_full_geometry_on_the_card(cuda, path):
 
 def test_int8_cp_engine_and_prefix_cache_on_the_card(cuda):
     """At full geometry: the int8-cp engine's code predictor launches K2
-    and K1 and its dense talker never K3; a request that hits the prefix
-    cache after another request gives the cold request's codes."""
+    at every step and replays its prelude (the 2-token prefill on K1) as
+    a CUDA graph, whose replays count their K1 launches; its dense
+    talker never launches K3; a request that hits the prefix cache after
+    another request gives the cold request's codes."""
     from qwen3_tts_tpu_torch.config import TTSConfig
     from qwen3_tts_tpu_torch.engine.engine import TTSEngine
     eng = TTSEngine(TTSConfig(max_tokens=24), quantize="int8-cp",
@@ -770,10 +913,14 @@ def test_int8_cp_engine_and_prefix_cache_on_the_card(cuda):
     assert eng.quantize == "int8-cp"
     k2, k3, k1 = (tcp.cp_decode_steps.launches,
                   tts.talker_decode_step_fused.launches, tqm.qmatmul.launches)
+    replays = _cp_graph_counts()[1]
     cold = eng.synthesize("Привет, мир!", seed=3)
     assert cold.n_tokens > 0
-    assert tcp.cp_decode_steps.launches > k2
-    assert tqm.qmatmul.launches > k1
+    steps = tcp.cp_decode_steps.launches - k2
+    assert steps >= cold.n_tokens
+    assert _cp_graph_counts()[1] - replays == steps
+    assert tqm.qmatmul.launches - k1 >= 21 * steps
+    k1, k2 = tqm.qmatmul.launches, tcp.cp_decode_steps.launches
     assert tts.talker_decode_step_fused.launches == k3
     eng.synthesize("Another request.", seed=1)
     hit = eng.synthesize("Привет, мир!", seed=3)
@@ -781,6 +928,10 @@ def test_int8_cp_engine_and_prefix_cache_on_the_card(cuda):
     np.testing.assert_array_equal(hit.codes, cold.codes)
     np.testing.assert_array_equal(hit.audio_int16, cold.audio_int16)
     assert tts.talker_decode_step_fused.launches == k3
+    assert tqm.qmatmul.launches - k1 >= 21 * (
+        tcp.cp_decode_steps.launches - k2)
+    assert _cp_graph_counts()[1] - replays == (
+        tcp.cp_decode_steps.launches - k2 + steps)
 
 
 def test_safetensors_read_to_the_card_equals_the_host(cuda, tmp_path):
